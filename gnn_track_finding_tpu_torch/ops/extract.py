@@ -1,0 +1,336 @@
+"""Track-candidate extraction as batched tensor ops.
+
+Port of `gnn_track_finding_tpu.ops.extract` (extract.py:56-438): FastSV
+components over the active edges become rows of a (C, H) candidate matrix
+(lexsort on (component, -r), so hits arrive radius-descending); a masked
+H x H analysis does the close-proximity same-layer merge; the innermost
+edge rotation keeps the reference's r/z typo under bug_compat; the
+two-plane Kalman fit runs as one H-1 step loop over all candidates; the
+chi2 survival function gives the p-values; accepted rows are compacted to
+the front.
+
+bug_compat reproduces the rotation typo (extract_track_candidates.py:
+190-191) and filterpy's scalar-Q broadcast in the zr fit (:302).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gnn_track_finding_tpu_torch.config import PipelineConfig
+from gnn_track_finding_tpu_torch.graph import cca
+from gnn_track_finding_tpu_torch.graph.state import GraphState
+from gnn_track_finding_tpu_torch.ops import linalg
+from gnn_track_finding_tpu_torch.ops.priors import count_by
+
+
+class ExtractionResult(NamedTuple):
+    labels: torch.Tensor        # (N,) component label per node
+    row_of_node: torch.Tensor   # (N,) candidate row per node, -1 if none
+    cand_nodes: torch.Tensor    # (C, H) node indices per candidate row, -1 pad
+    cand_size: torch.Tensor     # (C,) nodes in the candidate (pre-merge)
+    processed: torch.Tensor     # (C,) candidate reached the KF fit
+    accepted: torch.Tensor      # (C,) passed both p-value gates
+    merged_pair: torch.Tensor   # (C,) number of proximity-merged node pairs
+    pval_xy: torch.Tensor       # (C,)
+    pval_zr: torch.Tensor       # (C,)
+    acc_nodes: torch.Tensor     # (A, H) node indices of the accepted rows, in order
+    acc_pvals: torch.Tensor     # (A, 2) their (pval_xy, pval_zr)
+    cca_rounds: int             # FastSV hooking rounds of this extraction
+
+
+def _candidate_matrix(g: GraphState, labels: torch.Tensor, h: int,
+                      min_hits: int):
+    """Rows of node indices per eligible component (size in [min_hits, h]),
+    radius-descending within a row (extract.py:56-114).  C is a multiple
+    of 64 above N // min_hits + 1; the last row is the scatter dump."""
+    n = g.num_padded_nodes
+    dev = g.device
+    c = -(-(n // min_hits + 1) // 64) * 64
+    alive = g.node_mask
+    lab = torch.where(alive, labels, n)
+
+    sizes = count_by(lab, alive, n)
+    eligible = (sizes >= min_hits) & (sizes <= h)
+    row_of_label = torch.where(eligible, torch.cumsum(eligible, dim=0) - 1, -1)
+
+    # lexsort((-r, lab)): stable sort on the secondary key, then the primary
+    o1 = torch.sort(-g.xyzr[:, 3], stable=True).indices
+    o2 = torch.sort(lab[o1], stable=True).indices
+    order = o1[o2]
+    sorted_lab = lab[order]
+    pos_all = torch.arange(n, device=dev)
+    change = torch.ones(n, dtype=torch.bool, device=dev)
+    change[1:] = sorted_lab[1:] != sorted_lab[:-1]
+    seg_start = torch.cummax(torch.where(change, pos_all, 0), dim=0).values
+    pos = pos_all - seg_start
+
+    sorted_row = torch.where(
+        sorted_lab < n, row_of_label[torch.clamp(sorted_lab, max=n - 1)], -1)
+    ok = (sorted_row >= 0) & (pos < h)
+    mat = torch.full((c, h), -1, dtype=torch.int64, device=dev)
+    mat[torch.where(ok, sorted_row, c - 1), torch.where(ok, pos, 0)] = \
+        torch.where(ok, order, -1)
+
+    size = torch.zeros(c, dtype=torch.int64, device=dev)
+    size[torch.where(eligible, row_of_label, c - 1)] = torch.where(
+        eligible, sizes, 0)
+    row_of_node = torch.where(
+        alive, row_of_label[torch.clamp(lab, max=n - 1)], -1)
+    return mat, size, row_of_node
+
+
+def _proximity_merge(g: GraphState, cfg: PipelineConfig, mat: torch.Tensor):
+    """Close-proximity same-layer merge analysis (extract.py:117-174) ->
+    (coords (C,H,4) post-merge, valid (C,H), can_process (C,), n_pairs (C,))."""
+    c, h = mat.shape
+    dev = mat.device
+    valid = mat >= 0
+    node = torch.clamp(mat, min=0)
+    coords = torch.where(valid[..., None], g.xyzr[node], 0.0)
+    vivl = g.vivl[node]
+    key = torch.where(valid, vivl[..., 0] * 1000 + vivl[..., 1],
+                      -1 - torch.arange(h, device=dev)[None])
+
+    same = key[:, :, None] == key[:, None, :]             # (C,H,H)
+    freq = torch.sum(same & valid[:, None, :], dim=2)
+    freq = torch.where(valid, freq, 0)
+    earlier = torch.tril(torch.ones((h, h), dtype=torch.bool, device=dev),
+                         diagonal=-1)                     # j < i
+    dup_before = torch.any(same & earlier[None], dim=2)
+    is_first = valid & ~dup_before
+
+    has2 = torch.any(freq == 2, dim=1)
+    layers_with_2 = torch.sum(is_first & (freq == 2), dim=1)
+    has_ge3 = torch.any(freq >= 3, dim=1)
+
+    # partner of each first-occurrence duplicate: the later same-key slot
+    # (exactly one where freq == 2, the only rows whose partner is read)
+    pair_mask = same & earlier.T[None]                    # j > i
+    pair_lead = is_first & (freq == 2)
+    partner = torch.argmax(pair_mask.to(torch.uint8), dim=2)
+    p_coords = torch.gather(coords, 1, partner[..., None].expand(-1, -1, 4))
+    dd = coords[..., :3] - p_coords[..., :3]
+    d3 = torch.sqrt(dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
+                    + dd[..., 2] * dd[..., 2])
+    pairs_ok = torch.all(
+        torch.where(pair_lead, d3 <= cfg.node_merge_distance, True), dim=1)
+
+    mergeable = has2 & (layers_with_2 <= 2) & ~has_ge3 & pairs_ok
+    clean = ~torch.any(freq >= 2, dim=1)
+    can_process = clean | mergeable
+
+    # midpoint merge on mergeable rows (ref :48-55,109-132)
+    mid_xyz = 0.5 * (coords[..., :3] + p_coords[..., :3])
+    mid_r = torch.sqrt(mid_xyz[..., 0] * mid_xyz[..., 0]
+                       + mid_xyz[..., 1] * mid_xyz[..., 1])
+    mid = torch.cat([mid_xyz, mid_r[..., None]], dim=-1)
+    do_merge = mergeable[:, None] & pair_lead
+    coords = torch.where(do_merge[..., None], mid, coords)
+    # a slot dies when some merged lead has it as its later partner
+    kill = torch.any(pair_mask & do_merge[:, :, None], dim=1)
+    n_pairs = torch.where(mergeable, layers_with_2, 0)
+    return coords, valid & ~kill, can_process, n_pairs
+
+
+def _rotate_tracks(coords, valid, n_hits, cfg: PipelineConfig):
+    """Innermost-edge rotation (extract.py:177-211); hits are
+    radius-descending, so the innermost sit at n-1, n-2, n-3."""
+    take = lambda i: torch.gather(
+        coords, 1, torch.clamp(i, min=0)[:, None, None].expand(-1, 1, 4))[:, 0]
+    p1 = take(n_hits - 1)
+    p2a = take(n_hits - 2)
+    p3 = take(n_hits - 3)
+    dd = p1[:, :3] - p2a[:, :3]
+    d = torch.sqrt(dd[:, 0] * dd[:, 0] + dd[:, 1] * dd[:, 1] + dd[:, 2] * dd[:, 2])
+    p2 = torch.where((d < cfg.separation_3d_threshold)[:, None], p3, p2a)
+
+    angle_xy = torch.atan2(p2[:, 1] - p1[:, 1], p2[:, 0] - p1[:, 0])
+    angle_zr = torch.atan2(p2[:, 2] - p1[:, 2], p2[:, 3] - p1[:, 3])
+    cxy, sxy = torch.cos(angle_xy)[:, None], torch.sin(angle_xy)[:, None]
+    czr, szr = torch.cos(angle_zr)[:, None], torch.sin(angle_zr)[:, None]
+    x, y, z, r = (coords[..., i] for i in range(4))
+    xn = x * cxy + y * sxy
+    yn = -x * sxy + y * cxy
+    if cfg.bug_compat:
+        rn = r * czr + r * szr       # ref :190 typo kept
+        zn = -z * szr + z * czr      # ref :191 typo kept
+    else:
+        rn = r * czr + z * szr
+        zn = -z * szr + r * czr
+    out = torch.stack([xn, yn, zn, rn], dim=-1)
+    return torch.where(valid[..., None], out, 0.0)
+
+
+def _kf_fit(coords, n_hits, cfg: PipelineConfig):
+    """Batched two-plane Kalman track fit (extract.py:214-331) -> p-values."""
+    c, h, _ = coords.shape
+    dtype = coords.dtype
+    dev = coords.device
+    tiny = linalg.tiny(dtype)
+    sxy2 = cfg.sigma0xy ** 2
+    srz2 = cfg.sigma0rz ** 2
+    zero = torch.zeros(c, dtype=dtype, device=dev)
+    one = torch.ones(c, dtype=dtype, device=dev)
+
+    x_xy = torch.stack([coords[:, 0, 1], zero, zero], dim=1)
+    P_xy = torch.diag(torch.tensor([sxy2, 1.0, 1.0], dtype=dtype,
+                                   device=dev)).expand(c, 3, 3)
+    x_rz = torch.stack([coords[:, 0, 3], zero], dim=1)
+    P_rz = torch.tensor([[srz2, 0.0], [0.0, 1000.0]], dtype=dtype,
+                        device=dev).expand(c, 2, 2)
+    chi_xy = zero
+    chi_rz = zero
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye2 = torch.eye(2, dtype=dtype, device=dev)
+    h_xy = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
+    h_rz = torch.tensor([1.0, 0.0], dtype=dtype, device=dev)
+    sw2 = cfg.ou_sigma ** 2
+
+    for i in range(h - 1):
+        ok = i + 1 < n_hits
+        x2, y2, z2, r2 = (coords[:, i, k] for k in range(4))
+        x3, y3, z3, r3 = (coords[:, i + 1, k] for k in range(4))
+
+        # parabola through origin + both hits (ref :197-205,236-239)
+        denom = (0.0 - x2) * (0.0 - x3) * (x2 - x3)
+        denom = torch.where(denom == 0.0, tiny, denom)
+        a = (x3 * y2 - x2 * y3) / denom
+        b = (-(x3 * x3) * y2 + (x2 * x2) * y3) / denom
+
+        dr = r3 - r2
+        dz = z3 - z2
+        hyp = torch.sqrt(dr * dr + dz * dz)
+        sin_t = torch.abs(dr) / torch.clamp(hyp, min=tiny)
+        u = 2.0 * a * x3 + b
+        kappa = (2.0 * a) / (1.0 + u * u) ** 1.5
+        var_ms = sin_t * cfg.ms_coefficient() * kappa * kappa
+        endcap = torch.abs(z3) >= cfg.endcap_boundary
+        var_ms = torch.where(
+            endcap, var_ms * torch.abs(dr / torch.where(dz == 0, tiny, dz)),
+            var_ms)
+
+        # OU transition + process noise (ref :257-282)
+        dx = x3 - x2
+        e1 = torch.exp(-torch.abs(dx) * cfg.ou_alpha)
+        f1 = (1.0 - e1) / cfg.ou_alpha
+        g1 = (torch.abs(dx) - f1) / cfg.ou_alpha
+        st2 = var_ms
+        dx2 = dx * dx
+        dxw2 = dx2 * sw2
+        q02 = 0.5 * dxw2
+        q01 = dx * (st2 + q02)
+        q12 = dx * sw2
+        F = torch.stack([
+            torch.stack([one, dx, g1], dim=-1),
+            torch.stack([zero, one, f1], dim=-1),
+            torch.stack([zero, zero, e1], dim=-1)], dim=-2)
+        Q = torch.stack([
+            torch.stack([dx2 * (st2 + 0.25 * dxw2), q01, q02], dim=-1),
+            torch.stack([q01, st2 + dxw2, q12], dim=-1),
+            torch.stack([q02, q12, sw2 * one], dim=-1)], dim=-2)
+
+        xp = linalg.mat3_vec(F, x_xy)
+        Pp = linalg.sandwich3(F, P_xy) + Q
+        # Joseph update, H = [1, 0, 0]
+        Sk = Pp[:, 0, 0] + sxy2
+        K = Pp[:, :, 0] / Sk[:, None]
+        res = y3 - xp[:, 0]
+        xn = xp + K * res[:, None]
+        ikh = eye3 - K[:, :, None] * h_xy[None, None, :]
+        Pn = linalg.sandwich3(ikh, Pp) + sxy2 * K[:, :, None] * K[:, None, :]
+        res_post = y3 - xn[:, 0]
+        S_post = Pn[:, 0, 0] + sxy2
+        c_xy = res_post * res_post / S_post
+
+        # zr plane: tracks r over dz steps, scalar-Q broadcast (ref :299-316)
+        Frz = torch.stack([torch.stack([one, dz], dim=-1),
+                           torch.stack([zero, one], dim=-1)], dim=-2)
+        xrp = linalg.mat2_vec(Frz, x_rz)
+        Prp = linalg.sandwich2(Frz, P_rz)
+        if cfg.bug_compat:
+            Prp = Prp + var_ms[:, None, None]     # filterpy scalar broadcast
+        else:
+            Prp[:, 1, 1] += var_ms             # Prp is a fresh tensor
+        Srz = Prp[:, 0, 0] + srz2
+        Krz = Prp[:, :, 0] / Srz[:, None]
+        res_rz = r3 - xrp[:, 0]
+        xrn = xrp + Krz * res_rz[:, None]
+        ikh2 = eye2 - Krz[:, :, None] * h_rz[None, None, :]
+        Prn = linalg.sandwich2(ikh2, Prp) + srz2 * Krz[:, :, None] * Krz[:, None, :]
+        res_rz_post = r3 - xrn[:, 0]
+        S_rz_post = Prn[:, 0, 0] + srz2
+        c_rz = res_rz_post * res_rz_post / S_rz_post
+
+        x_xy = torch.where(ok[:, None], xn, x_xy)
+        P_xy = torch.where(ok[:, None, None], Pn, P_xy)
+        x_rz = torch.where(ok[:, None], xrn, x_rz)
+        P_rz = torch.where(ok[:, None, None], Prn, P_rz)
+        chi_xy = chi_xy + torch.where(ok, c_xy, 0.0)
+        chi_rz = chi_rz + torch.where(ok, c_rz, 0.0)
+
+    dof = torch.clamp(n_hits - 2, min=1).to(dtype)
+    pval_xy = torch.special.gammaincc(0.5 * dof, 0.5 * chi_xy)
+    pval_zr = torch.special.gammaincc(0.5 * dof, 0.5 * chi_rz)
+    return pval_xy, pval_zr
+
+
+def extract_candidates(g: GraphState, cfg: PipelineConfig) -> ExtractionResult:
+    """One extraction round over the active edges (extract.py:334-406)."""
+    h = cfg.max_track_hits
+    labels, rounds = cca.connected_components_fastsv(g, g.edge_mask & g.active)
+    mat, size, row_of_node = _candidate_matrix(g, labels, h,
+                                               cfg.min_track_hits)
+    big_enough = size >= cfg.min_track_hits
+
+    coords, valid_m, can_process, n_pairs = _proximity_merge(g, cfg, mat)
+    n_hits = torch.sum(valid_m, dim=1)
+    # one hit per layer post-merge AND enough distinct layers (ref :427-429)
+    processed = big_enough & can_process & (n_hits >= cfg.min_track_hits)
+
+    # compact each row: valid slots to the front, radius order kept
+    c, h_ = valid_m.shape
+    rank = torch.cumsum(valid_m, dim=1) - 1
+    dest = torch.where(valid_m, rank, h_)
+    coords_c = torch.zeros((c, h_ + 1, 4), dtype=coords.dtype,
+                           device=coords.device)
+    coords_c.scatter_(1, dest[..., None].expand(-1, -1, 4), coords)
+    coords_c = coords_c[:, :h_]
+    valid_c = torch.arange(h_, device=coords.device)[None, :] < n_hits[:, None]
+
+    coords_r = _rotate_tracks(coords_c, valid_c, n_hits, cfg)
+    pval_xy, pval_zr = _kf_fit(coords_r, n_hits, cfg)
+
+    accepted = (processed & (pval_xy >= cfg.track_acceptance_pval)
+                & (pval_zr >= cfg.track_acceptance_pval))
+    acc_rows = torch.nonzero(accepted).squeeze(1)    # in row order
+    return ExtractionResult(
+        labels=labels, row_of_node=row_of_node, cand_nodes=mat,
+        cand_size=size, processed=processed, accepted=accepted,
+        merged_pair=n_pairs, pval_xy=pval_xy, pval_zr=pval_zr,
+        acc_nodes=mat[acc_rows],
+        acc_pvals=torch.stack([pval_xy, pval_zr], dim=1)[acc_rows],
+        cca_rounds=rounds)
+
+
+def apply_extraction(g: GraphState, res: ExtractionResult,
+                     cfg: PipelineConfig) -> GraphState:
+    """Remove accepted candidates' nodes, then drop whole ingest components
+    that fell below the fragment size (extract.py:409-438)."""
+    n = g.num_padded_nodes
+    row = res.row_of_node
+    node_extracted = ((row >= 0) & res.accepted[torch.clamp(row, min=0)]
+                      & g.node_mask)
+    mask1 = g.node_mask & ~node_extracted
+    comp = torch.where(mask1, g.component, 0)
+    left = count_by(comp, mask1, n)
+    frag = left[g.component] < cfg.min_track_hits
+    new_node_mask = mask1 & ~frag
+    # edge 2i+1 is edge 2i's reverse: test the pairs, then repeat
+    alive_pair = new_node_mask[g.src[0::2]] & new_node_mask[g.dst[0::2]]
+    alive_e = torch.repeat_interleave(alive_pair, 2)
+    new_edge_mask = g.edge_mask & alive_e
+    return g.replace(node_mask=new_node_mask, edge_mask=new_edge_mask,
+                     active=g.active & new_edge_mask)
