@@ -16,7 +16,19 @@ kernels against their plain PyTorch versions on the card:
      plain path's (the same schedule on CPU tensors), the kernels' launch
      counts in the main-path run, and a 3-event stream against the solo run;
   6. steady-state times: each kernel and its plain version at the full-event
-     shapes, per-stage and per-event wall times, streamed events/s.
+     shapes, per-stage and per-event wall times, streamed events/s;
+  7. the host driver `run_pipeline` at float64: on volume 7 and the full
+     event, ingest that recomputes the set()-order mirror (checked against
+     the cached one) and builds the NetworkX-order tracker, the driver with
+     the extraction-leak replay against the reference's counts (mutation
+     counts, replay time per extraction, wall per event, both kernels'
+     launch counts in the full-event run) and, at volume 7, against the
+     same driver on CPU tensors (mutations and candidate nodes exact,
+     p-values at rtol 1e-6, final states at rtol 1e-12), and the driver
+     without a
+     tracker against run_pipeline_fast; the reference digest at volume 7
+     (tools/validate_port_vs_reference.py) on the card; and the volume-7
+     event written as CSV files and read back through the C++ loader.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record; the last line is
@@ -28,6 +40,7 @@ before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -94,8 +107,10 @@ def main() -> int:
 
     from gnn_track_finding_tpu_torch import _build
     from gnn_track_finding_tpu_torch.config import PipelineConfig
+    from gnn_track_finding_tpu_torch.data import native_loader, trackml
     from gnn_track_finding_tpu_torch.data.event_cache import load_npz
-    from gnn_track_finding_tpu_torch.graph.build import build_graph_state
+    from gnn_track_finding_tpu_torch.graph.build import (build_event,
+                                                         build_graph_state)
     from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                                  distinct_kernel, extract,
@@ -110,6 +125,11 @@ def main() -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
+    shutil.rmtree(native_loader.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    native_loader.library()
+    print(f"g++ build of native/loader.cc: {time.perf_counter() - t0:.2f} s "
+          f"-> {native_loader.library_path().name}")
 
     events = {}
 
@@ -310,14 +330,146 @@ def main() -> int:
         print(f"stream_pipeline {n_ev} full events {name} (ingest included): "
               f"{dt:.3f} s = {n_ev / dt:.3f} events/s, {n_cand} candidates")
 
+    phase("7. the host driver: run_pipeline with the extraction-leak replay")
+    from tools import validate_port_vs_reference as vpr
+    from tools import validate_vs_reference as vvr
+    print(f"card: {card}")
+
+    def candidates_match(a, b, rtol):
+        return (len(a.candidates) == len(b.candidates) and all(
+            x.iteration == y.iteration and np.array_equal(x.nodes, y.nodes)
+            and np.allclose([x.pval_xy, x.pval_zr], [y.pval_xy, y.pval_zr],
+                            rtol=rtol, atol=0)
+            for x, y in zip(a.candidates, b.candidates)))
+
+    for path in (VOL7, FULL):
+        graph(path, torch.float64)     # warm-up; reads the npz if needed
+        (_, cfg), t_cached = sync_time(lambda: graph(path, torch.float64))
+        xyzr, vivl, tp, pairs, extra, pre = events[path]
+        _, t_tracker = sync_time(lambda: build_event(
+            xyzr, vivl, tp, pairs, cfg, device=cuda, mirror=pre["mirror"],
+            component=pre["component"], node_ids=extra["node_ids"]))
+
+        def ingest(device):
+            return build_event(xyzr, vivl, tp, pairs, cfg, device=device,
+                               node_ids=extra["node_ids"])
+
+        (g, host), t_ingest = sync_time(lambda: ingest(cuda))
+        check(np.array_equal(host.mirror, pre["mirror"]),
+              f"{path.name}: recomputed mirror differs from the cached one")
+        print(f"{path.name} ingest: cached mirror {t_cached:.3f} s; cached "
+              f"mirror + tracker {t_tracker:.3f} s (tracker build "
+              f"{t_tracker - t_cached:.3f} s); tracker + recomputed mirror "
+              f"and components {t_ingest:.3f} s; the recomputed mirror "
+              f"equals the cached one ({host.mirror.shape[0]} edges)")
+        replay = []
+        merges = host.tracker.extraction_merges
+
+        def timed_merges(*args):
+            t0 = time.perf_counter()
+            muts = merges(*args)
+            replay.append(time.perf_counter() - t0)
+            return muts
+
+        host.tracker.extraction_merges = timed_merges
+        cluster_kernel.cluster_core.launches = 0
+        distinct_kernel.distinct_counts.launches = 0
+        out, t_host = sync_time(lambda: pipeline.run_pipeline(
+            g, cfg, tracker=host.tracker))
+        path_launches = {
+            "gmr_cluster": cluster_kernel.cluster_core.launches,
+            "distinct_counts": distinct_kernel.distinct_counts.launches}
+        per_it = counts(out, cfg)
+        print(f"{path.name} run_pipeline(tracker) float64: accepted {per_it} "
+              f"(reference {EXPECTED_F64[path]}), wall {t_host:.3f} s; "
+              f"mutations per extraction {[len(m) for m in out.mutations]}, "
+              f"leak replay per extraction {[round(t, 3) for t in replay]} s; "
+              f"kernel launches {path_launches}")
+        check(per_it == EXPECTED_F64[path],
+              f"{path.name} run_pipeline(tracker) counts")
+        check(len(out.mutations[0]) > 0,
+              f"{path.name}: the leak replay found no merge")
+        check(all(v > 0 for v in path_launches.values()),
+              "a kernel was not launched by run_pipeline")
+        if path == FULL:
+            host_launches = path_launches
+        else:
+            # the leak path on the card against the same driver on CPU
+            # tensors (held to the JAX driver by tests/test_torch_driver.py)
+            g_cpu, host_cpu = ingest(torch.device("cpu"))
+            ref = pipeline.run_pipeline(g_cpu, cfg, tracker=host_cpu.tracker)
+            check(out.mutations == ref.mutations,
+                  f"{path.name}: mutations differ between card and CPU")
+            # p-values: rtol 1e-6.  The card's atan2/sin/cos differ from the
+            # CPU's in the last ulp, and the track fit is ill-conditioned:
+            # one ulp on each rotated coordinate moves the volume-7
+            # p-values by up to 1.5e-8 relative on the CPU
+            pv = lambda r: np.array([(c.pval_xy, c.pval_zr)
+                                     for c in r.candidates])
+            p_card, p_cpu = pv(out), pv(ref)
+            if p_card.shape == p_cpu.shape:
+                nz = p_cpu != 0
+                print(f"{path.name} card vs CPU: max relative p-value diff "
+                      f"{np.max(np.abs(p_card - p_cpu)[nz] / p_cpu[nz])}")
+            check(candidates_match(out, ref, 1e-6),
+                  f"{path.name}: candidates differ between card and CPU")
+            errs = {}
+            for name in ("gnn_xyzr", "out_head_xyzr", "upd_sv", "upd_cov"):
+                a, b = getattr(out.graph, name).cpu(), getattr(ref.graph, name)
+                torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-14,
+                                           msg=f"{path.name} {name}")
+                errs[name] = float((a - b).abs().max())
+            print(f"{path.name} run_pipeline(tracker) on the card vs on the "
+                  f"CPU: mutations and candidate nodes identical, p-values "
+                  f"within rtol 1e-6, states within rtol 1e-12 (max "
+                  f"|diff|: {errs})")
+        plain, t_plain = sync_time(lambda: pipeline.run_pipeline(g, cfg))
+        fast = pipeline.run_pipeline_fast(g, cfg)
+        check(candidates_match(plain, fast, 1e-12),
+              f"{path.name}: run_pipeline without a tracker differs from "
+              "run_pipeline_fast")
+        print(f"{path.name} run_pipeline without a tracker (host CCA): "
+              f"{t_plain:.3f} s, candidates identical to run_pipeline_fast")
+
+    res = vvr.compare(vvr.load_digest(), vpr.compute_port_states(cuda))
+    check((res["seed_cmp"], res["clus_cmp"], res["upd_cmp"])
+          == (14766, 8748, 434), "reference digest: compared counts")
+    check(all(v == 1.0 for k, v in res.items() if not k.endswith("_cmp")),
+          f"reference digest: {res}")
+    print("reference digest at volume 7 on the card: 1.0 on every check")
+
+    csv_dir = REPO / "build" / "smoke_csv"
+    shutil.rmtree(csv_dir, ignore_errors=True)
+    xyzr, vivl, tp, pairs, extra, pre = events[VOL7]
+    paths = trackml.write_csvs(csv_dir, xyzr, vivl, pairs, extra)
+    nx, nv, nt, npairs, nex = native_loader.load_event_arrays_native(
+        paths.nodes_csv, paths.edges_csv, paths.truth_csv, 7, 7)
+    check(np.allclose(nx, xyzr, rtol=1e-15, atol=0)
+          and np.array_equal(nv, vivl) and np.array_equal(nt, tp)
+          and np.array_equal(npairs, pairs)
+          and np.array_equal(nex["node_ids"], extra["node_ids"])
+          and np.array_equal(nex["components"], pre["component"]),
+          "CSV round trip: the loader's arrays differ from the cache's")
+    cfg = PipelineConfig()
+    (g, host), t_csv = sync_time(lambda: trackml.load_event(
+        paths, cfg, device=cuda, cache_dir=csv_dir / "cache"))
+    check(np.array_equal(host.mirror, pre["mirror"]), "CSV ingest mirror")
+    per_it = counts(pipeline.run_pipeline(g, cfg, tracker=host.tracker), cfg)
+    check(per_it == EXPECTED_F64[VOL7], "CSV ingest run_pipeline counts")
+    print(f"volume 7 as CSV through the C++ loader: arrays equal the cache's, "
+          f"load_event {t_csv:.3f} s, run_pipeline(tracker) {per_it}")
+    shutil.rmtree(csv_dir, ignore_errors=True)
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
+         "launches_run_pipeline": host_launches["gmr_cluster"],
          "max_abs_err": record["cluster_max_abs_err"],
          "ms": times["gmr_cluster"], "plain_ms": times["gmr_cluster_plain"]},
         {"name": "distinct_counts", "route": "cuda", "source": DISTINCT_SOURCE,
          "replaces": DISTINCT_REPLACES,
          "launches": launches["distinct_counts"],
+         "launches_run_pipeline": host_launches["distinct_counts"],
          "max_abs_err": record["distinct_max_abs_err"],
          "ms": times["distinct_counts"],
          "plain_ms": times["distinct_counts_plain"]},

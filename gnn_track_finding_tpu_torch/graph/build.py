@@ -6,27 +6,43 @@ two halves:
   * a numpy host half (build.py:245-370): dedupe of the undirected pairs
     (first occurrence kept), the interleaved 2i / 2i+1 directed edges,
     dense layer and truth indices, the fixed-K in/out tables in insertion
-    order with K doubled past `max_node_degree` as needed, and bucket
-    padding;
+    order with K doubled past `max_node_degree` as needed, the reference's
+    set()-order `mirror` table (build.py:183-224, through the
+    NetworkX-order tracker of graph/nxorder.py), and bucket padding;
   * a torch device init (build.py:79-180) that derives every other field
     on the device: the edge tables from one-writer (endpoint, slot)
     scatters, the gather caches and the zero state buffers.
 
-The reference's set()-order `mirror` table comes in as an argument (from
-the event cache, or from the JAX ingest in tests): computing it needs the
-NetworkX-order emulation, which stays in the JAX package.  Clean mode
-never reads it and uses the identity.
+`build_event` returns the GraphState with the host record (node ids,
+tracker, mirror) that the parity driver needs; `build_graph_state` the
+GraphState alone.  A `mirror` passed in (from the event cache) skips the
+order emulation; clean mode without a tracker never reads the mirror and
+uses the identity.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import itertools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from scipy.sparse import coo_matrix
+from scipy.sparse.csgraph import connected_components
 
 from gnn_track_finding_tpu_torch.config import PipelineConfig
+from gnn_track_finding_tpu_torch.graph.nxorder import RefOrderTracker
 from gnn_track_finding_tpu_torch.graph.state import GraphState, slot_table
+
+
+@dataclasses.dataclass
+class HostEvent:
+    """Host-only per-event data beside the GraphState (the JAX `HostEvent`,
+    build.py:28-44, without the hit lists nothing here reads)."""
+    node_ids: np.ndarray                        # original node id per dense node
+    tracker: Optional[RefOrderTracker] = None   # feeds run_pipeline's leak replay
+    mirror: Optional[np.ndarray] = None         # (e,) set()-order mirror, unpadded
 
 
 def _round_up(x: int, m: int) -> int:
@@ -36,8 +52,6 @@ def _round_up(x: int, m: int) -> int:
 def connected_components_host(n: int, pairs: np.ndarray) -> np.ndarray:
     """Min-node-index component label per node over undirected pairs (the
     labels of the JAX union-find `connected_components_host`)."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
     m = pairs.shape[0]
     adj = coo_matrix((np.ones(m, np.int8), (pairs[:, 0], pairs[:, 1])),
                      shape=(n, n))
@@ -57,6 +71,57 @@ def _slots(keys: np.ndarray) -> np.ndarray:
     return slot
 
 
+def _host_table(keys: np.ndarray, slots: np.ndarray, n: int, k: int
+                ) -> np.ndarray:
+    """(n, k) host table of edge ids at (keys[e], slots[e]), -1 elsewhere:
+    each row lists a node's edges in edge (insertion) order."""
+    tab = np.full((n, k), -1, np.int64)
+    tab[keys, slots] = np.arange(keys.shape[0])
+    return tab
+
+
+def compute_mirror(n: int, src: np.ndarray, dst: np.ndarray,
+                   orig_of: np.ndarray, orders) -> np.ndarray:
+    """Mirror in-edge per directed edge (reference tau-pairing defect,
+    helper.py:349-429; JAX build.py:183-224): for each node, the k-th
+    neighbour in the reference's set() iteration order borrows tau from
+    neighbour d-1-k.  `orders` is RefOrderTracker.neighbour_orders()
+    (original ids).  Every neighbour has an in-edge (edges are
+    bidirectional), so both lookups resolve: the edge lookup is a
+    searchsorted over (dst, src) keys, the dense-id lookup one over the
+    sorted original ids."""
+    e = len(src)
+    mirror = np.arange(e, dtype=np.int64)
+    lens = np.fromiter((len(o) if o else 0 for o in orders), np.int64, n)
+    total = int(lens.sum())
+    if total == 0:
+        return mirror
+    flat = np.fromiter(itertools.chain.from_iterable(
+        o for o in orders if o), np.int64, total)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    node_of = np.repeat(np.arange(n), lens)
+    idx = np.arange(total)
+    flat_rev = flat[offs[node_of] + offs[node_of + 1] - 1 - idx]
+
+    sorter = np.argsort(orig_of, kind="stable")
+    sorted_ids = orig_of[sorter]
+    a_dense = sorter[np.searchsorted(sorted_ids, flat)]
+    b_dense = sorter[np.searchsorted(sorted_ids, flat_rev)]
+
+    ekeys = dst.astype(np.int64) * n + src
+    esort = np.argsort(ekeys, kind="stable")
+    ekeys_s = ekeys[esort]
+    qa = node_of * np.int64(n) + a_dense
+    qb = node_of * np.int64(n) + b_dense
+    pa = np.searchsorted(ekeys_s, qa)
+    pb = np.searchsorted(ekeys_s, qb)
+    if not (np.array_equal(ekeys_s[pa], qa) and np.array_equal(ekeys_s[pb], qb)):
+        raise ValueError("a neighbour of the set()-order lists has no in-edge")
+    mirror[esort[pa]] = esort[pb]
+    return mirror
+
+
 def build_graph_state(
     xyzr: np.ndarray,               # (n, 4) float
     vivl: np.ndarray,               # (n, 2) int (volume_id, in_volume_layer_id)
@@ -68,10 +133,40 @@ def build_graph_state(
     dtype: torch.dtype = torch.float64,
     mirror: Optional[np.ndarray] = None,
     component: Optional[np.ndarray] = None,
+    node_ids: Optional[np.ndarray] = None,
 ) -> GraphState:
-    """mirror: (e,) set()-order mirror edge of each directed edge after
-    dedupe (required under bug_compat; identity in clean mode).
-    component: (n,) ingest component labels; computed here when absent."""
+    """The GraphState of one event (build_event without the host record)."""
+    return build_event(xyzr, vivl, truth_particle, edge_pairs, cfg,
+                       device=device, dtype=dtype, mirror=mirror,
+                       component=component, node_ids=node_ids,
+                       with_tracker=False)[0]
+
+
+def build_event(
+    xyzr: np.ndarray,
+    vivl: np.ndarray,
+    truth_particle: np.ndarray,
+    edge_pairs: np.ndarray,
+    cfg: PipelineConfig,
+    *,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.float64,
+    mirror: Optional[np.ndarray] = None,
+    component: Optional[np.ndarray] = None,
+    node_ids: Optional[np.ndarray] = None,
+    with_tracker: bool = True,
+) -> Tuple[GraphState, HostEvent]:
+    """-> (GraphState, HostEvent), as the JAX build_graph_state returns.
+
+    mirror: (e,) set()-order mirror edge of each directed edge after
+    dedupe, e.g. from the event cache.  Without it, bug_compat ingest (and
+    any ingest with_tracker) builds the NetworkX-order tracker and computes
+    the mirror; clean mode without a tracker uses the identity.
+    component: (n,) ingest component labels; computed here when absent.
+    node_ids: (n,) original node ids (the tracker's set() orders hash them);
+    default 0..n-1.
+    with_tracker: keep the tracker in the HostEvent (run_pipeline's
+    extraction-leak replay needs it); otherwise HostEvent.tracker is None."""
     n = xyzr.shape[0]
     # -- dedupe unordered pairs, keep first occurrence (helper.py:510-518)
     a = np.minimum(edge_pairs[:, 0], edge_pairs[:, 1]).astype(np.int64)
@@ -98,11 +193,16 @@ def build_graph_state(
     slot_in = _slots(dst)
     slot_out = _slots(src)
 
+    orig_of = (np.arange(n, dtype=np.int64) if node_ids is None
+               else np.asarray(node_ids, np.int64))
+    tracker = None
+    if with_tracker or (mirror is None and cfg.bug_compat):
+        tracker = RefOrderTracker(n, src, dst, _host_table(dst, slot_in, n, k),
+                                  _host_table(src, slot_out, n, k), orig_of)
     if mirror is None:
-        if cfg.bug_compat:
-            raise ValueError("bug_compat ingest needs the set()-order mirror "
-                             "table (event cache or JAX ingest)")
-        mirror = np.arange(e, dtype=np.int64)
+        mirror = (compute_mirror(n, src, dst, orig_of,
+                                 tracker.neighbour_orders())
+                  if tracker is not None else np.arange(e, dtype=np.int64))
     mirror = np.asarray(mirror, np.int64)
     if mirror.shape != (e,):
         raise ValueError(f"mirror has shape {mirror.shape}, expected ({e},)")
@@ -128,8 +228,11 @@ def build_graph_state(
                 else np.arange(e_pad, dtype=np.int64)),
     )
     dev = device_init(host, n, e, k, torch.device(device), dtype)
-    return GraphState(n_nodes=n, n_edges=e, max_degree=k,
-                      n_layers=len(layers), **dev)
+    g = GraphState(n_nodes=n, n_edges=e, max_degree=k,
+                   n_layers=len(layers), **dev)
+    return g, HostEvent(node_ids=orig_of,
+                        tracker=tracker if with_tracker else None,
+                        mirror=mirror)
 
 
 def device_init(h: dict, n: int, e: int, k: int, device: torch.device,

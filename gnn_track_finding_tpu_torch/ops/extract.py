@@ -38,7 +38,7 @@ class ExtractionResult(NamedTuple):
     pval_zr: torch.Tensor       # (C,)
     acc_nodes: torch.Tensor     # (A, H) node indices of the accepted rows, in order
     acc_pvals: torch.Tensor     # (A, 2) their (pval_xy, pval_zr)
-    cca_rounds: int             # FastSV hooking rounds of this extraction
+    cca_rounds: int             # FastSV hooking rounds (0: labels given)
 
 
 def _candidate_matrix(g: GraphState, labels: torch.Tensor, h: int,
@@ -277,10 +277,20 @@ def _kf_fit(coords, n_hits, cfg: PipelineConfig):
     return pval_xy, pval_zr
 
 
-def extract_candidates(g: GraphState, cfg: PipelineConfig) -> ExtractionResult:
-    """One extraction round over the active edges (extract.py:334-406)."""
+def extract_candidates(g: GraphState, cfg: PipelineConfig,
+                       labels: torch.Tensor | None = None) -> ExtractionResult:
+    """One extraction round over the active edges (extract.py:334-406).
+
+    labels: (N,) component labels computed elsewhere (the minimum node
+    index of each weak component over the active edges, as the host
+    union-find of data/native_loader.py gives them); FastSV on the device
+    when absent.  cca_rounds is 0 when labels are given."""
     h = cfg.max_track_hits
-    labels, rounds = cca.connected_components_fastsv(g, g.edge_mask & g.active)
+    if labels is None:
+        labels, rounds = cca.connected_components_fastsv(
+            g, g.edge_mask & g.active)
+    else:
+        rounds = 0
     mat, size, row_of_node = _candidate_matrix(g, labels, h,
                                                cfg.min_track_hits)
     big_enough = size >= cfg.min_track_hits

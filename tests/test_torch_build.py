@@ -98,9 +98,15 @@ def test_clean_mode_mirror_is_identity_and_component_is_computed():
                           PipelineConfig(bug_compat=False, **TOY_CFG),
                           device="cpu")
     _assert_states_equal(jg, g)
-    with pytest.raises(ValueError, match="mirror"):
-        build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs,
+    # bug_compat without a given mirror computes the set()-order one, as
+    # the JAX ingest does
+    jg, _ = jax_build(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs,
+                      JaxConfig(**TOY_CFG))
+    g = build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs,
                           PipelineConfig(**TOY_CFG), device="cpu")
+    _assert_states_equal(jg, g)
+    assert not np.array_equal(g.mirror.numpy(),
+                              np.arange(g.num_padded_edges))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

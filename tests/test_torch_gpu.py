@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
-card, and the schedule's float64 counts through the kernels.  These tests
-need a CUDA device and skip without one; they import no JAX, so they run
-on a machine that has only torch:
+card, the schedule's float64 counts through the kernels, and the host
+driver on the card (leak replay against the same driver on the CPU, host
+CCA labels, the reference digest).
+These tests need a CUDA device and skip without one; they import no JAX,
+so they run on a machine that has only torch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -19,7 +21,7 @@ import torch
 
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
-from gnn_track_finding_tpu_torch.graph.build import build_graph_state
+from gnn_track_finding_tpu_torch.graph.build import build_event, build_graph_state
 from gnn_track_finding_tpu_torch.models import pipeline
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel)
@@ -96,3 +98,77 @@ def test_volume7_counts_through_the_kernels(cuda):
     assert per_it == [1055, 110, 2]
     assert cluster_kernel.cluster_core.launches > 0
     assert distinct_kernel.distinct_counts.launches > 0
+
+
+def _volume7_with_tracker(device):
+    """Volume 7 ingested with the mirror and components the port computes
+    itself, and the NetworkX-order tracker."""
+    xyzr, vivl, tp, pairs, extra, pre = load_npz(VOL7_NPZ)
+    g, host = build_event(xyzr, vivl, tp, pairs, CFG, device=device,
+                          node_ids=extra["node_ids"])
+    assert (host.mirror == pre["mirror"]).all()
+    return g, host
+
+
+@pytest.mark.gpu
+def test_host_driver_with_leak_replay_through_the_kernels(cuda):
+    g, host = _volume7_with_tracker(cuda)
+    cluster_kernel.cluster_core.launches = 0
+    distinct_kernel.distinct_counts.launches = 0
+    out = pipeline.run_pipeline(g, CFG, tracker=host.tracker)
+    per_it = [sum(1 for c in out.candidates if c.iteration == i)
+              for i in (1, 2, 3)]
+    assert per_it == [1055, 110, 2]
+    assert len(out.mutations[0]) > 0 and out.cca_rounds == [0, 0, 0]
+    assert cluster_kernel.cluster_core.launches > 0
+    assert distinct_kernel.distinct_counts.launches > 0
+    assert out.graph.gnn_xyzr.is_cuda and out.per_iteration[0].labels.is_cuda
+
+
+@pytest.mark.gpu
+def test_host_driver_states_on_the_card_match_the_cpu_driver(cuda):
+    """The leak path on the card (pinned mask copy, host CCA labels, replay,
+    mutation scatter) against the same driver on CPU tensors, which
+    tests/test_torch_driver.py holds to the JAX driver: the same mutations
+    per extraction, the same candidate nodes, states to rtol 1e-12, and
+    p-values to rtol 1e-6: the card's atan2/sin/cos differ from the CPU's
+    in the last ulp, and one ulp on each rotated coordinate moves the
+    ill-conditioned track fit's p-values by up to 1.5e-8 relative."""
+    runs = [pipeline.run_pipeline(g, CFG, tracker=host.tracker)
+            for g, host in (_volume7_with_tracker(d)
+                            for d in (cuda, torch.device("cpu")))]
+    card, cpu = runs
+    assert card.mutations == cpu.mutations and len(cpu.mutations[0]) > 0
+    assert [(c.iteration, c.nodes.tolist()) for c in card.candidates] == \
+        [(c.iteration, c.nodes.tolist()) for c in cpu.candidates]
+    pv = lambda r: [(c.pval_xy, c.pval_zr) for c in r.candidates]
+    np.testing.assert_allclose(pv(card), pv(cpu), rtol=1e-6, atol=0)
+    for name in ("gnn_xyzr", "out_head_xyzr", "upd_sv", "upd_cov"):
+        torch.testing.assert_close(getattr(card.graph, name).cpu(),
+                                   getattr(cpu.graph, name), rtol=1e-12,
+                                   atol=1e-14, msg=name)
+
+
+@pytest.mark.gpu
+def test_host_cca_labels_equal_fastsv_labels_on_the_card(cuda):
+    g, _ = _volume7_with_tracker(cuda)
+    host = pipeline.run_pipeline(g, CFG, host_cca=True)
+    device = pipeline.run_pipeline(g, CFG, host_cca=False)
+    fast = pipeline.run_pipeline_fast(g, CFG)
+    for a, b in zip(host.per_iteration, device.per_iteration):
+        assert torch.equal(a.labels, b.labels)
+    cands = lambda r: [(c.iteration, c.nodes.tolist()) for c in r.candidates]
+    assert cands(host) == cands(device) == cands(fast)
+
+
+@pytest.mark.gpu
+def test_reference_digest_on_the_card(cuda):
+    import sys
+    sys.path.insert(0, str(VOL7_NPZ.parents[1]))
+    from tools import validate_port_vs_reference as vpr
+    from tools import validate_vs_reference as vvr
+    res = vvr.compare(vvr.load_digest(), vpr.compute_port_states(cuda),
+                      log=lambda *a: None)
+    assert (res["seed_cmp"], res["clus_cmp"], res["upd_cmp"]) == (14766, 8748,
+                                                                  434)
+    assert all(v == 1.0 for k, v in res.items() if not k.endswith("_cmp"))
