@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by nvcc into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers: the build takes
+Every `csrc/*.cu` file is compiled by its own nvcc process, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers: the build takes
 seconds, not minutes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/gnn_kernels/libgnn_kernels_<hash>.so
+         -Xcompiler -fPIC -c csrc/<name>.cu           (one per source)
+    nvcc -shared -o build/gnn_kernels/libgnn_kernels_<hash>.so <objects>
 
 `-fmad=false` keeps each kernel on the same sequence of individually
 rounded operations as its plain PyTorch version (no fused multiply-add
@@ -31,19 +33,21 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "gnn_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_D = ctypes.c_double
 # C signatures of the entry points, one per dtype suffix
 _SIGNATURES = {
     # x, ok, node_x, out, n, k, stream
     "distinct_counts": [_P, _P, _P, _P, _I, _I, _P],
-    # pk, nodex, gate, klthr, valid, rows, kc, chi2_thr, endcap, s_rz,
-    # s_rz2, bug_compat, found, pm, pc, mprior, deact, stream
-    "gmr_cluster": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
-                    _P, _P, _P, _P, _P, _P],
+    # const ClusterArgs* (cluster_kernel._Args), stream
+    "gmr_cluster": [_P, _P],
+    # kc, int[4] out: blocks per SM, threads per block, smem bytes, lanes
+    # per row
+    "gmr_cluster_occupancy": [_I, _P],
+    # int[3] out: blocks per SM, threads per block, smem bytes
+    "distinct_counts_occupancy": [_P],
 }
 
 
@@ -84,11 +88,25 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}")
+    return log
+
+
 def build(verbose: bool = False) -> KernelLibrary:
     """Compile (if needed) and load the kernel library.  verbose adds
     ptxas resource usage (registers, shared memory, spills) to the log."""
+    srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     path = BUILD_DIR / f"libgnn_kernels_{h.hexdigest()[:16]}.so"
@@ -96,16 +114,17 @@ def build(verbose: bool = False) -> KernelLibrary:
     t0 = time.perf_counter()
     if verbose or not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-               + ["-o", tmp] + [str(s) for s in sources()])
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+            ptxas = ["-Xptxas", "-v"] if verbose else []
+            log = _run_all(
+                [[_nvcc()] + NVCC_FLAGS + ptxas
+                 + ["-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(srcs, objs)])
+            lib = Path(tmp) / path.name
+            log += _run_all([[_nvcc(), "-shared", "-o", str(lib)]
+                             + [str(o) for o in objs]])
+            os.replace(lib, path)
     return KernelLibrary(path, time.perf_counter() - t0, log)
 
 

@@ -1,23 +1,31 @@
 """GMR clustering core: CUDA kernel wrapper and its plain version.
 
 The kernel (csrc/gmr_cluster.cu) replaces the TPU kernel
-`gnn_track_finding_tpu/ops/pallas_cluster.py::_kernel`.  It is bound by
-float64 arithmetic latency, not memory: one warp per compacted row, lanes
-over slots and slot pairs, warp-shuffle argmins (see the source's note).
+`gnn_track_finding_tpu/ops/pallas_cluster.py::_kernel`.  A group of 8
+lanes works on one compacted row, so a warp holds 4 rows; the group
+reads only the row's member slots, straight from the round's per-edge
+state tensors through the compacted edge table, and enumerates only
+their n(n-1)/2 real pairs (see the source's note).
 
 `cluster_core` is the one entry of `clustering.cluster`: it launches the
 kernel for CUDA tensors and raises on any other device than the CPU,
-where it takes `cluster_core_plain` (the port of the JAX
-`clustering._cluster_core_xla`, clustering.py:389-467).  Both return
-(found (rows,) bool, pm (rows, 3), pc (rows, 9), mprior (rows,),
-deact (rows, kc) bool), with zero outputs on rows that are not found.
+where it takes `cluster_core_plain` (the packed gather of `pack_rows`,
+then the port of the JAX `clustering._cluster_core_xla`,
+clustering.py:389-467).  Both return (found (rows,) bool, pm (rows, 3),
+pc (rows, 9), mprior (rows,), deact (rows, kc) bool), with zero outputs
+on rows that are not found.
 
-Input layout, node-major: pk (rows, kc, 29) packed slot states
-[p_sv 0:3 | p_cov 3:12 | j_sv 12:15 | j_cov 15:24 | prior 24 | nb_xyzr 25:29],
-node_xyzr (rows, 4), gate (rows,) bool, klthr (rows,), valid (rows, kc) bool.
+Inputs: `states` (the round's per-edge fields, `SlotStates`), `tab`
+(rows, kc) int64 edge ids of each row's member slots — the members are
+the leading non-negative entries, -1 after them, as the rank compaction
+of clustering.py builds them — node_xyzr (rows, 4) and klthr (rows,).
+Every row is a gated row.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,7 +33,34 @@ from gnn_track_finding_tpu_torch import _build
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.ops import linalg
 
-MAX_KC = 32   # slots per row the kernel takes (one lane each)
+MAX_KC = 32   # slots per row the kernel takes (one bit each in its masks)
+
+
+class SlotStates(NamedTuple):
+    """The per-edge state fields one clustering round reads (E rows each);
+    xyzr may be a strided view (the seed round's e_xyzr[:, :4])."""
+    p_sv: torch.Tensor       # (E, 3) parabolic state
+    p_cov: torch.Tensor      # (E, 3, 3)
+    j_sv: torch.Tensor       # (E, 3) joint state
+    j_cov: torch.Tensor      # (E, 3, 3)
+    prior: torch.Tensor      # (E,)
+    xyzr: torch.Tensor       # (E, 4) neighbour coordinates
+
+
+def member_mask(tab: torch.Tensor) -> torch.Tensor:
+    """(rows, kc) bool: the leading non-negative entries of each row."""
+    return torch.cumprod((tab >= 0).to(torch.uint8), dim=1).bool()
+
+
+def pack_rows(states: SlotStates, tab: torch.Tensor):
+    """The packed (rows, kc, 29) slot rows [p_sv 0:3 | p_cov 3:12 | j_sv 12:15
+    | j_cov 15:24 | prior 24 | nb_xyzr 25:29] of the JAX core, and their
+    (rows, kc) member mask.  Padding slots repeat edge 0."""
+    packed = torch.cat([
+        states.p_sv, states.p_cov.reshape(-1, 9), states.j_sv,
+        states.j_cov.reshape(-1, 9), states.prior[:, None], states.xyzr],
+        dim=1)
+    return packed[torch.clamp(tab, min=0)], member_mask(tab)
 
 
 def _pairwise_chi2(node_xyzr, cfg: PipelineConfig, nb_xyzr, valid, joint,
@@ -85,9 +120,10 @@ def _pairwise_chi2(node_xyzr, cfg: PipelineConfig, nb_xyzr, valid, joint,
     return torch.where(ok, chi2, float("inf"))
 
 
-def cluster_core_plain(pk, node_xyzr, gate, klthr, valid, *, chi2_thr: float,
-                       cfg: PipelineConfig):
-    """Row-space GMR core as batched tensor ops plus a (kc - 2)-step loop."""
+def core_rows_plain(pk, valid, node_xyzr, klthr, *, chi2_thr: float,
+                    cfg: PipelineConfig):
+    """Row-space GMR core over packed rows (every row gated): batched
+    tensor ops plus a (kc - 2)-step loop."""
     rows, kc, _ = pk.shape
     dtype = pk.dtype
     dev = pk.device
@@ -110,7 +146,7 @@ def cluster_core_plain(pk, node_xyzr, gate, klthr, valid, *, chi2_thr: float,
     best_val = torch.amin(flat, dim=1)
     i0 = best // kc
     i1 = best % kc
-    found = gate & (best_val < chi2_thr) & torch.isfinite(best_val)
+    found = (best_val < chi2_thr) & torch.isfinite(best_val)
 
     r = torch.arange(rows, device=dev)
     take = lambda arr, idx: arr[r, idx]
@@ -150,47 +186,107 @@ def cluster_core_plain(pk, node_xyzr, gate, klthr, valid, *, chi2_thr: float,
             torch.where(found, mprior, zero), remaining & found[:, None])
 
 
-def cluster_core(pk, node_xyzr, gate, klthr, valid, *, chi2_thr: float,
-                 cfg: PipelineConfig):
+def cluster_core_plain(states: SlotStates, tab, node_xyzr, klthr, *,
+                       chi2_thr: float, cfg: PipelineConfig):
+    """The packed gather, then the row-space core."""
+    pk, valid = pack_rows(states, tab)
+    return core_rows_plain(pk, valid, node_xyzr, klthr, chi2_thr=chi2_thr,
+                           cfg=cfg)
+
+
+class _Args(ctypes.Structure):
+    """struct ClusterArgs of csrc/gmr_cluster.cu, field for field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "tab", "p_sv", "p_cov", "j_sv", "j_cov", "prior", "xyzr", "nodex",
+        "klthr", "found", "pm", "pc", "mprior", "deact")]
+        + [(name, ctypes.c_longlong) for name in (
+            "tab_stride", "p_sv_stride", "p_cov_stride", "j_sv_stride",
+            "j_cov_stride", "prior_stride", "xyzr_stride")]
+        + [(name, ctypes.c_int) for name in ("rows", "kc", "bug_compat")]
+        + [(name, ctypes.c_double) for name in ("chi2_thr", "endcap", "s_rz",
+                                                "s_rz2")])
+
+
+def _row_stride(name: str, t: torch.Tensor, inner: tuple) -> int:
+    """Row stride of an (E, *inner) tensor whose rows are contiguous."""
+    want, step = [], 1
+    for d in reversed(inner):
+        want.insert(0, step)
+        step *= d
+    if t.shape[1:] != inner or t.stride()[1:] != tuple(want):
+        raise ValueError(f"cluster_core: {name} is {tuple(t.shape)} with "
+                         f"strides {t.stride()}; rows must be contiguous "
+                         f"{inner}")
+    return t.stride(0)
+
+
+_INNER = {"p_sv": (3,), "p_cov": (3, 3), "j_sv": (3,), "j_cov": (3, 3),
+          "prior": (), "xyzr": (4,)}
+
+
+def cluster_core(states: SlotStates, tab, node_xyzr, klthr, *,
+                 chi2_thr: float, cfg: PipelineConfig):
     """GMR core over compacted rows: the CUDA kernel on the card, the plain
     version for CPU tensors."""
-    if pk.device.type == "cpu":
-        return cluster_core_plain(pk, node_xyzr, gate, klthr, valid,
+    if tab.device.type == "cpu":
+        return cluster_core_plain(states, tab, node_xyzr, klthr,
                                   chi2_thr=chi2_thr, cfg=cfg)
-    if pk.device.type != "cuda":
-        raise ValueError(f"cluster_core: unsupported device {pk.device}")
-    rows, kc, width = pk.shape
-    dev = pk.device
-    dtype = pk.dtype
-    if width != 29 or not 2 <= kc <= MAX_KC:
-        raise ValueError(f"cluster_core: pk shape {tuple(pk.shape)}")
-    expect = {"node_xyzr": ((rows, 4), dtype), "gate": ((rows,), torch.bool),
-              "klthr": ((rows,), dtype), "valid": ((rows, kc), torch.bool)}
-    for name, t in zip(expect, (node_xyzr, gate, klthr, valid)):
-        shape, dt = expect[name]
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"cluster_core: {name} is {tuple(t.shape)} "
-                             f"{t.dtype}, expected {shape} {dt}")
-    for t in (pk, node_xyzr, gate, klthr, valid):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("cluster_core: inputs must be contiguous tensors "
-                             "on one CUDA device")
+    if tab.device.type != "cuda":
+        raise ValueError(f"cluster_core: unsupported device {tab.device}")
+    rows, kc = tab.shape
+    dev = tab.device
+    dtype = node_xyzr.dtype
+    if not 2 <= kc <= MAX_KC or tab.dtype != torch.int64 or (
+            rows and tab.stride(1) != 1):
+        raise ValueError(f"cluster_core: tab is {tuple(tab.shape)} "
+                         f"{tab.dtype}, expected (rows, 2..{MAX_KC}) int64 "
+                         "with contiguous rows")
+    expect = {"node_xyzr": (rows, 4), "klthr": (rows,)}
+    for name, t in zip(expect, (node_xyzr, klthr)):
+        if tuple(t.shape) != expect[name] or not t.is_contiguous():
+            raise ValueError(f"cluster_core: {name} is {tuple(t.shape)}, "
+                             f"expected contiguous {expect[name]}")
+    strides = [_row_stride(name, t, _INNER[name])
+               for name, t in zip(states._fields, states)]
+    n_edges = states.prior.shape[0]
+    if any(t.shape[0] != n_edges for t in states) or any(
+            t.device != dev or t.dtype != dtype
+            for t in list(states) + [node_xyzr, klthr]):
+        raise ValueError("cluster_core: the state fields (one row per edge), "
+                         "node_xyzr and klthr must share tab's CUDA device "
+                         f"and the dtype {dtype}")
     found = torch.empty((rows,), dtype=torch.bool, device=dev)
     pm = torch.empty((rows, 3), dtype=dtype, device=dev)
     pc = torch.empty((rows, 9), dtype=dtype, device=dev)
     mprior = torch.empty((rows,), dtype=dtype, device=dev)
     deact = torch.empty((rows, kc), dtype=torch.bool, device=dev)
-    lib = _build.library()
-    rc = lib.fn("gmr_cluster", dtype)(
-        pk.data_ptr(), node_xyzr.data_ptr(), gate.data_ptr(),
-        klthr.data_ptr(), valid.data_ptr(), rows, kc, float(chi2_thr),
-        float(cfg.endcap_boundary), float(cfg.sigma0rz),
-        float(cfg.sigma0rz2), int(cfg.bug_compat), found.data_ptr(),
+    if rows == 0:
+        return found, pm, pc, mprior, deact
+    args = _Args(
+        tab.data_ptr(), *(t.data_ptr() for t in states),
+        node_xyzr.data_ptr(), klthr.data_ptr(), found.data_ptr(),
         pm.data_ptr(), pc.data_ptr(), mprior.data_ptr(), deact.data_ptr(),
-        _build.stream_handle(dev))
+        tab.stride(0), *strides, rows, kc,
+        int(cfg.bug_compat), float(chi2_thr), float(cfg.endcap_boundary),
+        float(cfg.sigma0rz), float(cfg.sigma0rz2))
+    rc = _build.library().fn("gmr_cluster", dtype)(
+        ctypes.byref(args), _build.stream_handle(dev))
     _build.check(rc, "gmr_cluster")
     cluster_core.launches += 1
     return found, pm, pc, mprior, deact
 
 
 cluster_core.launches = 0
+
+
+def occupancy(dtype, kc: int) -> dict:
+    """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    of the kernel at this dtype and kc, with its block shape."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().fn("gmr_cluster_occupancy", dtype)(kc, out)
+    _build.check(rc, "gmr_cluster_occupancy")
+    blocks, threads, smem, group = out
+    return {"blocks_per_sm": blocks, "threads_per_block": threads,
+            "smem_bytes_per_block": smem, "lanes_per_row": group,
+            "warps_per_sm": blocks * threads // 32,
+            "rows_per_sm": blocks * threads // group}

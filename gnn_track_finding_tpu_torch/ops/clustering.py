@@ -7,11 +7,12 @@ best chi2 pair and greedily absorbs further states by KL distance; the
 in-edges of the states left unabsorbed are deactivated.
 
 There is one code path.  The member in-edges of each node are compacted
-to the first kc slots in insertion order; the packed (cg, kc, 29) state
-rows of the cg gated nodes go to the core — the CUDA kernel on the card,
-the plain version on the CPU — and the narrow results scatter back to
-node space.  Every scatter writes one value per real cell; out-of-range
-writes go to one extra dump row that is sliced off.
+to the first kc slots in insertion order; the (cg, kc) edge-id rows of the
+cg gated nodes and the round's per-edge state tensors go to the core — the
+CUDA kernel on the card reads the member slots through the ids, the plain
+version on the CPU gathers packed rows first — and the narrow results
+scatter back to node space.  Every scatter writes one value per real cell;
+out-of-range writes go to one extra dump row that is sliced off.
 """
 
 from __future__ import annotations
@@ -55,29 +56,26 @@ def _compact_member_edges(g: GraphState, member_slot: torch.Tensor,
     return compact, torch.sum(member_slot, dim=1)
 
 
-def _packed_states(g: GraphState, use_updated: bool) -> torch.Tensor:
-    """(E, 29) [p_sv | p_cov | j_sv | j_cov | prior | nb_xyzr] per edge;
-    neighbour coordinates are the state dict's own record (seed-time
-    e_xyzr tail, or the extrapolation-time upd_xyzr snapshot)."""
+def round_states(g: GraphState, use_updated: bool) -> cluster_kernel.SlotStates:
+    """The per-edge state fields of a round; neighbour coordinates are the
+    state dict's own record (seed-time e_xyzr tail, a strided view, or the
+    extrapolation-time upd_xyzr snapshot)."""
     if use_updated:
-        return torch.cat([
-            g.upd_sv, g.upd_cov.reshape(-1, 9), g.upd_joint,
-            g.upd_joint_cov.reshape(-1, 9), g.upd_prior[:, None],
-            g.upd_xyzr], dim=1)
-    return torch.cat([
-        g.seed_sv, g.seed_cov.reshape(-1, 9), g.seed_joint,
-        g.seed_joint_cov.reshape(-1, 9), g.seed_prior[:, None],
-        g.e_xyzr[:, :4]], dim=1)
+        return cluster_kernel.SlotStates(g.upd_sv, g.upd_cov, g.upd_joint,
+                                         g.upd_joint_cov, g.upd_prior,
+                                         g.upd_xyzr)
+    return cluster_kernel.SlotStates(g.seed_sv, g.seed_cov, g.seed_joint,
+                                     g.seed_joint_cov, g.seed_prior,
+                                     g.e_xyzr[:, :4])
 
 
 class CoreInputs(NamedTuple):
     """The compacted rows a clustering round hands to the GMR core."""
     ids: torch.Tensor           # (cg,) node of each row (the gated nodes)
-    pk: torch.Tensor            # (cg, kc, 29) packed slot states
+    tab: torch.Tensor           # (cg, kc) member edge ids, -1 padded
+    states: cluster_kernel.SlotStates   # the round's per-edge fields
     node_xyzr: torch.Tensor     # (cg, 4)
-    gate: torch.Tensor          # (cg,) bool
     klthr: torch.Tensor         # (cg,) per-row KL threshold
-    valid: torch.Tensor         # (cg, kc) bool
     chi2_thr: float
     member_slot: torch.Tensor   # (N, K) membership of the in-edge table
 
@@ -85,8 +83,9 @@ class CoreInputs(NamedTuple):
 def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
                 kl_thresholds: torch.Tensor | None = None,
                 kc: int = KC) -> CoreInputs:
-    """Gated compaction: the member states of the nodes with 3..15 members,
-    compacted to kc slots in insertion order.  The gated rows are counted
+    """Gated compaction: the member in-edge ids of the nodes with 3..15
+    members, compacted to kc slots in insertion order (so each row's
+    members are its leading entries).  The gated rows are counted
     (one host sync): a fixed N / 3 bound would not hold, since a node's
     members are its in-edges and E / 3 exceeds N."""
     dtype = g.dtype
@@ -102,11 +101,9 @@ def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
         klthr_c = torch.full(ids.shape, kl_thr, dtype=dtype, device=g.device)
     else:
         klthr_c = kl_thresholds.to(dtype)[ids]
-    valid_c = tab_c >= 0
-    pk = _packed_states(g, use_updated)[torch.clamp(tab_c, min=0)]
-    return CoreInputs(ids=ids, pk=pk, node_xyzr=g.xyzr[ids],
-                      gate=torch.ones_like(valid_c[:, 0]), klthr=klthr_c,
-                      valid=valid_c, chi2_thr=chi2_thr,
+    return CoreInputs(ids=ids, tab=tab_c,
+                      states=round_states(g, use_updated),
+                      node_xyzr=g.xyzr[ids], klthr=klthr_c, chi2_thr=chi2_thr,
                       member_slot=member_slot)
 
 
@@ -120,8 +117,7 @@ def cluster(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     n = g.num_padded_nodes
     x = core_inputs(g, cfg, use_updated, kl_thresholds, kc)
     found_c, pm_c, pc_c, mprior_c, deact_c = cluster_kernel.cluster_core(
-        x.pk, x.node_xyzr, x.gate, x.klthr, x.valid, chi2_thr=x.chi2_thr,
-        cfg=cfg)
+        x.states, x.tab, x.node_xyzr, x.klthr, chi2_thr=x.chi2_thr, cfg=cfg)
 
     # scatter the narrow per-row results back to node space
     def expand(vals):

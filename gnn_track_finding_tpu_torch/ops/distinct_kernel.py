@@ -2,8 +2,10 @@
 
 The kernel (csrc/distinct_counts.cu) replaces the TPU kernel
 `gnn_track_finding_tpu/ops/pallas_distinct.py::_kernel`.  It is
-memory-bound (each (N, K) row read once, the K^2/2 compares from L1): one
-warp per node, ballot + popcount per 32-slot chunk, integer-exact.
+memory-bound, mostly by the (N, K) ok table: one thread per node turns the
+row's ok bytes into 64-bit masks (16-byte loads), leaves rows with no ok
+slot after writing (0, 0), and compares x only among the set bits;
+integer-exact.
 
 `distinct_counts` launches the kernel for CUDA tensors and raises on any
 other device than the CPU, where it takes the plain version
@@ -11,6 +13,8 @@ other device than the CPU, where it takes the plain version
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -57,6 +61,8 @@ def distinct_counts(ok_slot: torch.Tensor, x_slot: torch.Tensor,
             raise ValueError("distinct_counts: inputs must be contiguous "
                              "tensors on one CUDA device")
     out = torch.empty((n, 2), dtype=x_slot.dtype, device=dev)
+    if n == 0:
+        return out
     lib = _build.library()
     rc = lib.fn("distinct_counts", x_slot.dtype)(
         x_slot.data_ptr(), ok_slot.data_ptr(), node_x.data_ptr(),
@@ -67,3 +73,14 @@ def distinct_counts(ok_slot: torch.Tensor, x_slot: torch.Tensor,
 
 
 distinct_counts.launches = 0
+
+
+def occupancy(dtype) -> dict:
+    """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    of the kernel at this dtype, with its block shape."""
+    out = (ctypes.c_int * 3)()
+    rc = _build.library().fn("distinct_counts_occupancy", dtype)(out)
+    _build.check(rc, "distinct_counts_occupancy")
+    return {"blocks_per_sm": out[0], "threads_per_block": out[1],
+            "smem_bytes_per_block": out[2],
+            "warps_per_sm": out[0] * out[1] // 32}

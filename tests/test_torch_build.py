@@ -131,14 +131,24 @@ def test_from_numpy_to_numpy_round_trip(dtype):
     assert g.replace(n_nodes=0).n_nodes == 0 and g.n_nodes == jg.n_nodes
 
 
-def test_port_imports_no_jax():
+_IMPORTS = {
+    # every module of the package
+    "package": ("import pkgutil, importlib\n"
+                "import gnn_track_finding_tpu_torch as p\n"
+                "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+                "    importlib.import_module(m.name)\n"),
+    # the digest tool the card runs (chip_smoke phase 7)
+    "validate_port_tool": "import tools.validate_port_vs_reference\n",
+}
+
+
+@pytest.mark.parametrize("case", sorted(_IMPORTS))
+def test_port_imports_no_jax(case):
     code = (
-        "import sys, pkgutil, importlib\n"
-        "import gnn_track_finding_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "import sys\n" + _IMPORTS[case] +
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'pandas', 'networkx', 'gnn_track_finding_tpu')]\n"
+        "       ('jax', 'flax', 'pandas', 'networkx', 'gnn_track_finding_tpu')\n"
+        "       or m == 'tools.validate_vs_reference']\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -8,8 +8,8 @@ so they run on a machine that has only torch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: at float64 the kernels repeat their plain versions' order of
-operations with no contraction (nvcc -fmad=false), so flags, masks and
-counts are exact and values agree to rtol 1e-12; at float32 the band of
+operations with no contraction (nvcc -fmad=false), so flags, masks,
+counts and values are bitwise equal; at float32 the band of
 tests/test_pallas_cluster.py (under 6% flag flips, rtol 1e-5 where both
 merge)."""
 
@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from gnn_track_finding_tpu_torch import testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
 from gnn_track_finding_tpu_torch.graph.build import build_event, build_graph_state
@@ -46,6 +47,21 @@ def _volume7(device, dtype):
     return g
 
 
+def _assert_core_equal(got, want, dtype):
+    """float64: bitwise (flags, masks, values; NaN where the plain version
+    has NaN); float32: the flag band, values where both merge."""
+    f = want[0]
+    if dtype == torch.float64:
+        assert torch.equal(got[0], f) and torch.equal(got[4], want[4])
+        for a, b in zip(got[1:4], want[1:4]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert (got[0] != f).sum() <= 0.06 * f.numel()
+        both = got[0] & f
+        for a, b in zip(got[1:4], want[1:4]):
+            torch.testing.assert_close(a[both], b[both], rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kc", [4, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -53,24 +69,61 @@ def test_cluster_kernel_matches_plain(cuda, kc, dtype):
     g = pipeline.prepare(_volume7(cuda, dtype), CFG)
     thr = 2.0 + torch.arange(g.num_padded_nodes, device=cuda) % 7
     x = clustering.core_inputs(g, CFG, False, thr, kc=kc)
-    args = (x.pk, x.node_xyzr, x.gate, x.klthr, x.valid)
-    before = cluster_kernel.cluster_core.launches
-    got = cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr, cfg=CFG)
-    assert cluster_kernel.cluster_core.launches == before + 1
-    want = cluster_kernel.cluster_core_plain(*args, chi2_thr=x.chi2_thr,
+    inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
+    want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=x.chi2_thr,
                                              cfg=CFG)
+    assert want[0].any()
+    before = cluster_kernel.cluster_core.launches
+    got = cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr, cfg=CFG)
+    assert cluster_kernel.cluster_core.launches == before + 1
     torch.cuda.synchronize()
-    f = want[0]
-    assert f.any()
-    if dtype == torch.float64:
-        assert torch.equal(got[0], f) and torch.equal(got[4], want[4])
-        for a, b in zip(got[1:4], want[1:4]):
-            torch.testing.assert_close(a[f], b[f], rtol=1e-12, atol=1e-14)
-    else:
-        assert (got[0] != f).float().mean() < 0.06
-        both = got[0] & f
-        for a, b in zip(got[1:4], want[1:4]):
-            torch.testing.assert_close(a[both], b[both], rtol=1e-5, atol=1e-7)
+    _assert_core_equal(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [0, 1, 3, 33])
+@pytest.mark.parametrize("kc", [4, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cluster_kernel_matches_plain_on_synthetic_rows(cuda, rows, kc, dtype):
+    """Member counts 3..15 (3..32 at kc 32) mixed inside each warp, NaN
+    chi2 and NaN KL slots, exact chi2 ties, duplicated states (chi2 = 0),
+    klthr 1e30 (full absorption), row counts that are no multiple of the
+    rows per warp (testing.cluster_rows)."""
+    hi = 33 if kc == 32 else 16
+    counts = 3 + (np.arange(rows) * 7) % (hi - 3)
+    inputs = testing.cluster_rows(rows + kc, rows, kc, counts, dtype=dtype,
+                                  device=cuda)
+    want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=1.0, cfg=CFG)
+    got = cluster_kernel.cluster_core(*inputs, chi2_thr=1.0, cfg=CFG)
+    torch.cuda.synchronize()
+    _assert_core_equal(got, want, dtype)
+    if rows == 33:
+        assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.gpu
+def test_cluster_stage_on_the_card_reads_the_edge_tensors(cuda, monkeypatch):
+    """On the card the clustering round builds no packed (E, 29) table and
+    no (rows, kc, 29) gather: only the plain version calls pack_rows."""
+    g = pipeline.prepare(_volume7(cuda, torch.float64), CFG)
+
+    def refuse(*args):
+        raise AssertionError("pack_rows called on the card path")
+
+    monkeypatch.setattr(cluster_kernel, "pack_rows", refuse)
+    before = cluster_kernel.cluster_core.launches
+    got = clustering.cluster(g, CFG, False)
+    assert cluster_kernel.cluster_core.launches == before + 1
+    assert got.has_merged.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_occupancy(cuda, dtype):
+    for kc in (4, 16, 32):
+        occ = cluster_kernel.occupancy(dtype, kc)
+        assert occ["blocks_per_sm"] >= 1, occ
+    assert distinct_kernel.occupancy(dtype)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.gpu
@@ -86,6 +139,24 @@ def test_distinct_kernel_matches_plain(cuda, k, dtype):
     want = distinct_kernel.distinct_counts_plain(ok, x, x < node_x[:, None],
                                                  dtype)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [32, 64, 128, 40])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_distinct_kernel_matches_plain_on_edge_cases(cuda, k, dtype):
+    """Empty rows, all-ok rows with duplicates, x equal to node_x, NaN,
+    -0.0 beside 0.0 (testing.distinct_tables); K = 40 takes the byte path
+    (rows not 16-byte aligned)."""
+    ok, x, node_x = testing.distinct_tables(k, 997, k, dtype=dtype,
+                                            device=cuda)
+    before = distinct_kernel.distinct_counts.launches
+    got = distinct_kernel.distinct_counts(ok, x, node_x)
+    assert distinct_kernel.distinct_counts.launches == before + 1
+    want = distinct_kernel.distinct_counts_plain(ok, x, x < node_x[:, None],
+                                                 dtype)
+    assert torch.equal(got, want)
+    assert torch.equal(got[::6], torch.zeros_like(got[::6]))   # empty rows
 
 
 @pytest.mark.gpu
@@ -166,8 +237,7 @@ def test_reference_digest_on_the_card(cuda):
     import sys
     sys.path.insert(0, str(VOL7_NPZ.parents[1]))
     from tools import validate_port_vs_reference as vpr
-    from tools import validate_vs_reference as vvr
-    res = vvr.compare(vvr.load_digest(), vpr.compute_port_states(cuda),
+    res = vpr.compare(vpr.load_digest(), vpr.compute_port_states(cuda),
                       log=lambda *a: None)
     assert (res["seed_cmp"], res["clus_cmp"], res["upd_cmp"]) == (14766, 8748,
                                                                   434)

@@ -28,9 +28,22 @@ VOL7_NPZ = Path(vpr.VOL7_NPZ)
 
 
 @pytest.fixture(scope="module")
-def parity():
-    return vvr.compare(vvr.load_digest(), vpr.compute_port_states("cpu"),
-                       log=lambda *a: None)
+def port_states():
+    return vpr.compute_port_states("cpu")
+
+
+@pytest.fixture(scope="module")
+def parity(port_states):
+    return vpr.compare(vpr.load_digest(), port_states, log=lambda *a: None)
+
+
+def test_port_tool_compare_is_the_reference_tools(port_states, parity):
+    """The port's tool carries its own copy of the digest comparison (the
+    card's machine runs it without the JAX package's tools); on the same
+    inputs it gives what tools/validate_vs_reference.compare gives."""
+    assert vpr.load_digest().keys() == vvr.load_digest().keys()
+    assert vvr.compare(vvr.load_digest(), port_states,
+                       log=lambda *a: None) == parity
 
 
 def test_port_seed_states_match_reference(parity):
