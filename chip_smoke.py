@@ -37,7 +37,20 @@ kernels against their plain PyTorch versions on the card:
      without a
      tracker against run_pipeline_fast; the reference digest at volume 7
      (tools/validate_port_vs_reference.py) on the card; and the volume-7
-     event written as CSV files and read back through the C++ loader.
+     event written as CSV files and read back through the C++ loader;
+  8. the calibration, toy and evaluation paths at float64: the runner's
+     toy run (50 tracks, seed 1) and its efficiency report against the JAX
+     package's; the runner's calibration (20 toy events, seed 0, quantile
+     LUT on emp_var) on the card, its rows and LUT bins against the JAX
+     package's and its KL values against the same calibration on CPU
+     tensors; the KL training rows of the full event on the card against
+     the same function on CPU tensors; the clustering kernel against its
+     plain version under the LUT's per-node thresholds (both rounds of the
+     full event, bitwise; device time and bound); the calibrated full-event
+     run_pipeline with the tracker against the JAX package's counts;
+     stats_harness.accumulate_pvals over 10 toy runs against CPU tensors;
+     and `python -m gnn_track_finding_tpu_torch.run --toy` and
+     `--event <volume 7> --calibrate` as subprocesses.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -63,6 +76,25 @@ REPO = Path(__file__).resolve().parent
 VOL7 = REPO / ".event_cache" / "event_fafb3309e4598e9b.npz"
 FULL = REPO / ".event_cache" / "event_7bba1cb4ae95bca1.npz"
 EXPECTED_F64 = {VOL7: [1055, 110, 2], FULL: [1504, 436, 9]}
+# The JAX package's answers on its runner's toy and calibration paths at
+# float64 on the CPU (tools/jax_runner_constants.py): the toy run
+# (run.py --toy), the calibration rows and quantile LUT (run.py
+# --calibrate) and the calibrated run_pipeline with the tracker
+EXPECTED_TOY = {"per_iteration": [13, 1, 0], "num_reference": 50,
+                "num_reconstructed": 14, "efficiency_pct": 28.0,
+                "track_purities": [1.0] * 14, "particle_purities": [1.0] * 14,
+                "pure": 14}
+EXPECTED_CALIBRATION = {
+    "rows": 2858,
+    "lower": [0, 0, 4, 0, 25] + [0] * 23,
+    "upper": [1, 45, 95, 1, 26, 50, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1,
+              0, 0, 0, 0, 0, 0, 0, 1, 20],
+    "feature_bin_width": 705.5111035114334,
+    "kl_bin_width": 4339417.077760651}
+EXPECTED_CALIBRATED_F64 = {VOL7: [1022, 14, 0], FULL: [1468, 71, 0]}
+# KL training rows of the full event (the port on CPU tensors)
+FULL_TRAINING_ROWS = 1_956_687
+TRAINING_BLOCK, CPU_TRAINING_BLOCK = 2048, 256
 CLUSTER_SOURCE = "gnn_track_finding_tpu_torch/csrc/gmr_cluster.cu"
 DISTINCT_SOURCE = "gnn_track_finding_tpu_torch/csrc/distinct_counts.cu"
 CLUSTER_REPLACES = "gnn_track_finding_tpu/ops/pallas_cluster.py:118"
@@ -215,6 +247,272 @@ def distinct_bound(ok, x) -> dict:
     return bound(float(n_bytes), float(n_ops), x.dtype)
 
 
+def core_case(label, inputs, cfg, dtype, chi2_thr, check_found=True):
+    """The kernel against the plain version: bitwise at float64, the
+    flag band at float32.  Returns the largest |diff|."""
+    from gnn_track_finding_tpu_torch.ops import cluster_kernel
+    want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=chi2_thr,
+                                             cfg=cfg)
+    got = cluster_kernel.cluster_core(*inputs, chi2_thr=chi2_thr, cfg=cfg)
+    torch.cuda.synchronize()
+    f_k, f_p = got[0], want[0]
+    rows, kc = inputs[1].shape
+    flips = int((f_k != f_p).sum())
+    both = f_k & f_p
+    diff = max(float((a[both] - b[both]).abs().nan_to_num().max())
+               if both.any() else 0.0
+               for a, b in zip(got[1:4], want[1:4]))
+    print(f"{label}: {rows} rows x kc={kc}, found {int(f_k.sum())} "
+          f"(plain {int(f_p.sum())}), flag flips {flips}, deact diffs "
+          f"{int((got[4] != want[4]).sum())}, max |diff| of merged "
+          f"values {diff:.3e}")
+    check(both.any() or not check_found, f"{label}: no merged rows")
+    if dtype == torch.float64:
+        check(flips == 0 and torch.equal(got[4], want[4]),
+              f"{label}: float64 flags differ")
+        for a, b in zip(got[1:4], want[1:4]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                       equal_nan=True)
+    else:
+        check(flips < 0.06 * max(rows, 1), f"{label}: float32 flips")
+        for a, b in zip(got[1:4], want[1:4]):
+            torch.testing.assert_close(a[both], b[both], rtol=1e-5,
+                                       atol=1e-7)
+    return diff
+
+
+def calibration_phase(card, cuda, graph, counts, events):
+    """Phase 8: the runner's toy, calibration and evaluation paths at
+    float64 on the card.  Returns the clustering kernel's record under the
+    LUT thresholds and both kernels' launches in the calibrated full-event
+    run."""
+    import re
+
+    from gnn_track_finding_tpu_torch.analysis import stats_harness
+    from gnn_track_finding_tpu_torch.calib import lut, training_data
+    from gnn_track_finding_tpu_torch.config import PipelineConfig
+    from gnn_track_finding_tpu_torch.evaluation import efficiency
+    from gnn_track_finding_tpu_torch.graph import state as tstate
+    from gnn_track_finding_tpu_torch.graph.build import build_event
+    from gnn_track_finding_tpu_torch.models import pipeline, toymc
+    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                                 distinct_kernel)
+    cpu = torch.device("cpu")
+    f64 = torch.float64
+    print(f"card: {card}")
+
+    def zero_launches():
+        cluster_kernel.cluster_core.launches = 0
+        distinct_kernel.distinct_counts.launches = 0
+
+    def launches():
+        return {"gmr_cluster": cluster_kernel.cluster_core.launches,
+                "distinct_counts": distinct_kernel.distinct_counts.launches}
+
+    def max_rel(a, b):
+        nz = b != 0
+        return float(np.max(np.abs(a - b)[nz] / np.abs(b[nz]))) if nz.any() else 0.0
+
+    # -- the toy run of `run.py --toy`
+    cfg = PipelineConfig(node_bucket=256, edge_bucket=1024)
+    ev = toymc.generate_event(num_tracks=50, seed=1)
+    g, host = build_event(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, cfg,
+                          device=cuda)
+    zero_launches()
+    out, t_toy = sync_time(lambda: pipeline.run_pipeline(
+        g, cfg, tracker=host.tracker))
+    toy_launches = launches()
+    lists = [c.nodes for c in out.candidates]
+    rep = efficiency.evaluate_toy(lists, ev.truth, ev.vivl, cfg)
+    toy = {"per_iteration": counts(out, cfg),
+           "num_reference": rep.num_reference,
+           "num_reconstructed": rep.num_reconstructed,
+           "efficiency_pct": rep.efficiency_pct,
+           "track_purities": rep.track_purities.tolist(),
+           "particle_purities": rep.particle_purities.tolist(),
+           "pure": efficiency.pure_candidates(lists, ev.truth)}
+    print(f"toy run (50 tracks, seed 1), run_pipeline(tracker): {toy}; "
+          f"{t_toy:.3f} s; kernel launches {toy_launches}")
+    check(toy == EXPECTED_TOY, "toy run or report differs from the JAX "
+          f"package's {EXPECTED_TOY}")
+    check(all(v > 0 for v in toy_launches.values()),
+          "a kernel was not launched by the toy run")
+
+    # -- the calibration of `run.py --calibrate`
+    def calibrate(device):
+        return training_data.generate_training_data(num_events=20, seed=0,
+                                                    device=device)
+
+    rows, t_cal = sync_time(lambda: calibrate(cuda))
+    table = lut.fit_lut_quantile(rows, feature="emp_var")
+    rows_cpu, t_cal_cpu = sync_time(lambda: calibrate(cpu))
+    exp = EXPECTED_CALIBRATION
+    print(f"calibration on the card: {rows.shape[0]} rows in {t_cal:.3f} s "
+          f"(CPU tensors {t_cal_cpu:.3f} s); LUT lower {table.lower.tolist()}, "
+          f"upper {table.upper.tolist()}, bin widths "
+          f"{table.feature_bin_width!r} / {table.kl_bin_width!r}; KL card vs "
+          f"CPU max relative diff {max_rel(rows[:, 0], rows_cpu[:, 0]):.3e}")
+    check(rows.shape[0] == exp["rows"] and table.lower.tolist() == exp["lower"]
+          and table.upper.tolist() == exp["upper"],
+          "calibration rows or LUT bins differ from the JAX package's")
+    check(np.allclose([table.feature_bin_width, table.kl_bin_width],
+                      [exp["feature_bin_width"], exp["kl_bin_width"]],
+                      rtol=1e-12, atol=0), "LUT bin widths")
+    check(rows.shape == rows_cpu.shape
+          and np.array_equal(rows[:, 2:], rows_cpu[:, 2:]),
+          "calibration rows: degree or truth differ between card and CPU")
+    check(np.allclose(rows[:, 0], rows_cpu[:, 0], rtol=1e-9, atol=0),
+          "calibration KL differs between card and CPU")
+    # emp_var: a per-node variance summed in another order on the card;
+    # near-cancelling gradients leave a few 1e-17 absolute
+    check(np.allclose(rows[:, 1], rows_cpu[:, 1], rtol=1e-9, atol=1e-14,
+                      equal_nan=True),
+          "calibration emp_var differs between card and CPU")
+
+    # -- KL training rows of the full event
+    g_raw, cfg_full = graph(FULL, f64)
+    g_full = pipeline.prepare(g_raw, cfg_full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    meta, t_meta = sync_time(lambda: training_data.extract_metadata_trackml(
+        cfg_full, g_full, block=TRAINING_BLOCK))
+    peak = torch.cuda.max_memory_allocated() - base
+    g_full_cpu = tstate.from_numpy(
+        g_full.to_numpy(), n_nodes=g_full.n_nodes, n_edges=g_full.n_edges,
+        max_degree=g_full.max_degree, n_layers=g_full.n_layers, device=cpu,
+        dtype=f64)
+    # the rows come in (node, i, j) order whatever the block; the CPU
+    # takes smaller blocks, whose temporaries stay in its caches
+    meta_cpu, t_meta_cpu = sync_time(
+        lambda: training_data.extract_metadata_trackml(
+            cfg_full, g_full_cpu, block=CPU_TRAINING_BLOCK))
+    print(f"full-event training rows: {meta.shape[0]} at block "
+          f"{TRAINING_BLOCK}, {t_meta:.3f} s on the card (peak "
+          f"{peak / 2**30:.2f} GiB above the state), {t_meta_cpu:.3f} s on "
+          f"CPU tensors at block {CPU_TRAINING_BLOCK}; KL max relative diff "
+          f"{max_rel(meta[:, 0], meta_cpu[:, 0]):.3e}")
+    check(meta.shape == meta_cpu.shape == (FULL_TRAINING_ROWS, 4),
+          "full-event training row count")
+    # emp_var is NaN at nodes whose gradient variance is undefined
+    check(np.array_equal(meta[:, 1:], meta_cpu[:, 1:], equal_nan=True),
+          "full-event training rows: emp_var, degree or truth differ")
+    check(np.allclose(meta[:, 0], meta_cpu[:, 0], rtol=1e-9, atol=0),
+          "full-event training KL differs between card and CPU")
+
+    # -- the clustering kernel under the LUT's per-node thresholds
+    thr = lut.node_thresholds(table, g_raw, cfg_full)
+    n_nan = int(torch.isnan(g_full.grad_stats[:g_full.n_nodes, 1]).sum())
+    levels, per = np.unique(thr[:g_full.n_nodes].cpu().numpy(),
+                            return_counts=True)
+    print(f"LUT thresholds of the full event's {g_full.n_nodes} nodes "
+          f"({n_nan} NaN emp_var, in "
+          f"bin 0): {dict(zip(levels.tolist(), per.tolist()))}")
+    g2 = g_full
+    for i in (1, 2):
+        g2, _ = pipeline.iteration(g2, cfg_full, i, thr)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
+    lut_record = {}
+    for rnd, x in (("seed", clustering.core_inputs(g_full, cfg_full, False,
+                                                   thr)),
+                   ("updated", clustering.core_inputs(g2, cfg_full, True,
+                                                      thr))):
+        inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
+        lv, n_lv = torch.unique(x.klthr, return_counts=True)
+        rows_per = dict(zip(lv.tolist(), n_lv.tolist()))
+        core_case(f"{rnd} round float64 under the LUT thresholds", inputs,
+                  cfg_full, f64, x.chi2_thr)
+
+        def run():
+            return cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr,
+                                               cfg=cfg_full)
+
+        rec = {"rows": int(x.tab.shape[0]), "rows_per_threshold": rows_per,
+               "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
+               "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
+                   *inputs, chi2_thr=x.chi2_thr, cfg=cfg_full), reps=5),
+               **cluster_bound(x, run(), cfg_full)}
+        lut_record[rnd] = rec
+        print(f"gmr_cluster {rnd} round under the LUT thresholds, "
+              f"{tuple(x.tab.shape)}, rows per threshold {rows_per}: kernel "
+              f"device time {rec['ms']:.4f} ms (L2 flushed), "
+              f"{rec['ms_warm_l2']:.4f} ms (warm), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}: {rec['bytes']} bytes, {rec['ops']} ops)")
+    del flush
+
+    # -- the calibrated full-event run of the host driver
+    xyzr, vivl, tp, pairs, extra, pre = events[FULL]
+    g, host = build_event(xyzr, vivl, tp, pairs, cfg_full, device=cuda,
+                          mirror=pre["mirror"], component=pre["component"],
+                          node_ids=extra["node_ids"])
+    replay = []
+    merges = host.tracker.extraction_merges
+
+    def timed_merges(*args):
+        t0 = time.perf_counter()
+        muts = merges(*args)
+        replay.append(time.perf_counter() - t0)
+        return muts
+
+    host.tracker.extraction_merges = timed_merges
+    zero_launches()
+    out, t_run = sync_time(lambda: pipeline.run_pipeline(
+        g, cfg_full, kl_thresholds=thr, tracker=host.tracker))
+    calibrated_launches = launches()
+    per_it = counts(out, cfg_full)
+    print(f"{FULL.name} calibrated run_pipeline(tracker) float64: accepted "
+          f"{per_it} (JAX package {EXPECTED_CALIBRATED_F64[FULL]}), wall "
+          f"{t_run:.3f} s; mutations per extraction "
+          f"{[len(m) for m in out.mutations]}, leak replay per extraction "
+          f"{[round(t, 3) for t in replay]} s; kernel launches "
+          f"{calibrated_launches}")
+    check(per_it == EXPECTED_CALIBRATED_F64[FULL],
+          "calibrated full-event counts differ from the JAX package's")
+    check(all(v > 0 for v in calibrated_launches.values()),
+          "a kernel was not launched by the calibrated run")
+
+    # -- p-value statistics over toy runs
+    def stats(device):
+        return stats_harness.accumulate_pvals(num_runs=10, seed=0,
+                                              device=device)
+
+    st, t_st = sync_time(lambda: stats(cuda))
+    st_cpu = stats(cpu)
+    diffs = [max_rel(st[k], st_cpu[k]) for k in ("pvals_xy", "pvals_zr")]
+    uni = {k: stats_harness.uniformity_check(st[k])
+           for k in ("pvals_xy", "pvals_zr")}
+    print(f"accumulate_pvals over 10 toy runs: {st['pvals_xy'].size} "
+          f"candidates in {t_st:.3f} s; card vs CPU max relative p-value diff "
+          f"{diffs}; uniformity {uni}")
+    check(np.array_equal(st["purity"], st_cpu["purity"]) and all(
+        np.allclose(st[k], st_cpu[k], rtol=1e-6, atol=0)
+        for k in ("pvals_xy", "pvals_zr")),
+        "accumulate_pvals differs between card and CPU")
+
+    # -- the runner's new paths as a user calls them
+    for args, want in ((["--toy"], EXPECTED_TOY["per_iteration"]),
+                       (["--event", str(VOL7), "--calibrate"],
+                        EXPECTED_CALIBRATED_F64[VOL7])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gnn_track_finding_tpu_torch.run", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        print(f"run.py {' '.join(args)}: exit {proc.returncode} in "
+              f"{dt:.2f} s")
+        for line in lines:
+            print("  " + line)
+        check(proc.returncode == 0, f"run.py {args}: {proc.stderr[-2000:]}")
+        found = [re.search(r"candidates (\[[0-9, ]*\])", line)
+                 for line in lines if line.startswith("[pipeline]")]
+        check(bool(found) and found[0] is not None
+              and json.loads(found[0].group(1)) == want,
+              f"run.py {args}: counts differ from {want}")
+    return lut_record, calibrated_launches
+
+
 def main() -> int:
     phase("1. device")
     if not torch.cuda.is_available():
@@ -283,38 +581,6 @@ def main() -> int:
     record = {}
 
     phase("3. GMR clustering kernel vs plain (full event, edge cases)")
-
-    def core_case(label, inputs, cfg, dtype, chi2_thr, check_found=True):
-        """The kernel against the plain version: bitwise at float64, the
-        flag band at float32.  Returns the largest |diff|."""
-        want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=chi2_thr,
-                                                 cfg=cfg)
-        got = cluster_kernel.cluster_core(*inputs, chi2_thr=chi2_thr, cfg=cfg)
-        torch.cuda.synchronize()
-        f_k, f_p = got[0], want[0]
-        rows, kc = inputs[1].shape
-        flips = int((f_k != f_p).sum())
-        both = f_k & f_p
-        diff = max(float((a[both] - b[both]).abs().nan_to_num().max())
-                   if both.any() else 0.0
-                   for a, b in zip(got[1:4], want[1:4]))
-        print(f"{label}: {rows} rows x kc={kc}, found {int(f_k.sum())} "
-              f"(plain {int(f_p.sum())}), flag flips {flips}, deact diffs "
-              f"{int((got[4] != want[4]).sum())}, max |diff| of merged "
-              f"values {diff:.3e}")
-        check(both.any() or not check_found, f"{label}: no merged rows")
-        if dtype == torch.float64:
-            check(flips == 0 and torch.equal(got[4], want[4]),
-                  f"{label}: float64 flags differ")
-            for a, b in zip(got[1:4], want[1:4]):
-                torch.testing.assert_close(a, b, rtol=0, atol=0,
-                                           equal_nan=True)
-        else:
-            check(flips < 0.06 * max(rows, 1), f"{label}: float32 flips")
-            for a, b in zip(got[1:4], want[1:4]):
-                torch.testing.assert_close(a[both], b[both], rtol=1e-5,
-                                           atol=1e-7)
-        return diff
 
     def round_case(label, x, cfg, dtype):
         return core_case(label, (x.states, x.tab, x.node_xyzr, x.klthr), cfg,
@@ -661,10 +927,15 @@ def main() -> int:
           f"load_event {t_csv:.3f} s, run_pipeline(tracker) {per_it}")
     shutil.rmtree(csv_dir, ignore_errors=True)
 
+    phase("8. calibration, toy and evaluation paths (float64)")
+    lut_record, calibrated_launches = calibration_phase(card, cuda, graph,
+                                                        counts, events)
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
          "launches_run_pipeline": host_launches["gmr_cluster"],
+         "launches_calibrated": calibrated_launches["gmr_cluster"],
          "max_abs_err": record["cluster_max_abs_err"],
          "ms": times["gmr_cluster seed float64"],
          "ms_warm_l2": times["gmr_cluster seed float64 warm L2"],
@@ -678,6 +949,7 @@ def main() -> int:
              "ms_warm_l2": times["gmr_cluster updated float64 warm L2"],
              "plain_ms": times["gmr_cluster updated float64 plain"],
              **bounds["gmr_cluster updated float64"]},
+         "lut_thresholds": lut_record,
          "times": {k: v for k, v in times.items()
                    if k.startswith(("gmr_cluster", "cluster stage"))},
          "occupancy": {k: v for k, v in occupancy.items()
@@ -686,6 +958,7 @@ def main() -> int:
          "replaces": DISTINCT_REPLACES,
          "launches": launches["distinct_counts"],
          "launches_run_pipeline": host_launches["distinct_counts"],
+         "launches_calibrated": calibrated_launches["distinct_counts"],
          "max_abs_err": record["distinct_max_abs_err"],
          "ms": times["distinct_counts float64"],
          "ms_warm_l2": times["distinct_counts float64 warm L2"],

@@ -77,6 +77,13 @@ def load_npz(path: str | os.PathLike) -> tuple:
             arrays["pairs"], extra, precomputed)
 
 
+def hit_particle_ids(extra: dict) -> list:
+    """The particle ids of each node's hits, one array per node, from the
+    flat truth lists (`pid_flat` over `hit_off`)."""
+    return np.split(np.asarray(extra["pid_flat"]),
+                    np.asarray(extra["hit_off"])[1:-1])
+
+
 def load(cache_dir: str | os.PathLike, key: str) -> tuple | None:
     """load_npz of the cache of `key`, or None when there is none."""
     path = cache_path(cache_dir, key)

@@ -67,7 +67,8 @@ def load_event(paths: TrackMLPaths, cfg: PipelineConfig, *,
     g, host = build_event(xyzr, vivl, tp, pairs, cfg, device=device,
                           dtype=dtype, mirror=mirror, component=component,
                           node_ids=extra["node_ids"],
-                          with_tracker=with_tracker)
+                          with_tracker=with_tracker,
+                          hit_particle_ids=event_cache.hit_particle_ids(extra))
     if hit is None and key is not None and (cfg.bug_compat or with_tracker):
         # the loader's pairs are already deduplicated, so they are the
         # pairs the mirror indexes (2i = u->v of pair i)

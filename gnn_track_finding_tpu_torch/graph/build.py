@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +39,13 @@ from gnn_track_finding_tpu_torch.graph.state import GraphState, slot_table
 @dataclasses.dataclass
 class HostEvent:
     """Host-only per-event data beside the GraphState (the JAX `HostEvent`,
-    build.py:28-44, without the hit lists nothing here reads)."""
+    build.py:28-44, without the hit and module id lists nothing here
+    reads)."""
     node_ids: np.ndarray                        # original node id per dense node
     tracker: Optional[RefOrderTracker] = None   # feeds run_pipeline's leak replay
     mirror: Optional[np.ndarray] = None         # (e,) set()-order mirror, unpadded
+    # particle ids of each node's hits (evaluation/efficiency.evaluate)
+    hit_particle_ids: Optional[List[np.ndarray]] = None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -155,6 +158,7 @@ def build_event(
     component: Optional[np.ndarray] = None,
     node_ids: Optional[np.ndarray] = None,
     with_tracker: bool = True,
+    hit_particle_ids: Optional[List[np.ndarray]] = None,
 ) -> Tuple[GraphState, HostEvent]:
     """-> (GraphState, HostEvent), as the JAX build_graph_state returns.
 
@@ -166,7 +170,9 @@ def build_event(
     node_ids: (n,) original node ids (the tracker's set() orders hash them);
     default 0..n-1.
     with_tracker: keep the tracker in the HostEvent (run_pipeline's
-    extraction-leak replay needs it); otherwise HostEvent.tracker is None."""
+    extraction-leak replay needs it); otherwise HostEvent.tracker is None.
+    hit_particle_ids: the particle ids of each node's hits, one array per
+    node, kept in the HostEvent for the TrackML efficiency report."""
     n = xyzr.shape[0]
     # -- dedupe unordered pairs, keep first occurrence (helper.py:510-518)
     a = np.minimum(edge_pairs[:, 0], edge_pairs[:, 1]).astype(np.int64)
@@ -232,7 +238,7 @@ def build_event(
                    n_layers=len(layers), **dev)
     return g, HostEvent(node_ids=orig_of,
                         tracker=tracker if with_tracker else None,
-                        mirror=mirror)
+                        mirror=mirror, hit_particle_ids=hit_particle_ids)
 
 
 def device_init(h: dict, n: int, e: int, k: int, device: torch.device,

@@ -1,7 +1,8 @@
 """Host-side replica of the reference's NetworkX/CPython ordering semantics.
 
 Port of `gnn_track_finding_tpu.graph.nxorder` (nxorder.py:1-315), the same
-code to the element: it is plain Python over genuine `set()`s, and the
+code to the element but for the linear frequency count of the
+close-proximity merge: it is plain Python over genuine `set()`s, and the
 CPython hash order those sets produce is the point.  The JAX module cannot
 be imported here (its package imports jax).  Edge indices follow the
 port's directed-edge order, which interleaves like the JAX ingest's:
@@ -57,6 +58,7 @@ mutations so the device pipeline can reproduce the leak exactly
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -290,8 +292,10 @@ class RefOrderTracker:
         but keeps any mutations already applied."""
         vivl_ids = [(int(vivl[v, 0]), int(vivl[v, 1])) for v in cand]
         # reference builds {x: count} over the vivl list — dict order =
-        # first occurrence; values() order follows (:59-63)
-        vivl_ids_freq = {x: vivl_ids.count(x) for x in vivl_ids}
+        # first occurrence; values() order follows (:59-63).  A Counter
+        # has the same keys in the same order and the same counts, in
+        # linear time (list.count per element is quadratic).
+        vivl_ids_freq = collections.Counter(vivl_ids)
         freq_count = list(vivl_ids_freq.values())
         out = []
         if 2 not in freq_count:
@@ -301,7 +305,7 @@ class RefOrderTracker:
             return out
         if any(c != 1 for c in non2):
             return out
-        duplicated = list(set(t for t in vivl_ids if vivl_ids.count(t) > 1))
+        duplicated = list(set(t for t in vivl_ids if vivl_ids_freq[t] > 1))
         for dup in duplicated:
             nodes_of_interest = [cand[i] for i, t in enumerate(vivl_ids)
                                  if t == dup]

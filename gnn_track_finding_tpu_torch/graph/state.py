@@ -124,6 +124,13 @@ def slot_table(rows: torch.Tensor, slots: torch.Tensor, vals, n_rows: int,
     return tab[:n_rows]
 
 
+def as_numpy(x) -> np.ndarray:
+    """A host numpy array of x: a tensor on any device, or array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def tensor_fields():
     return [f.name for f in dataclasses.fields(GraphState)
             if f.name not in STATIC_FIELDS]

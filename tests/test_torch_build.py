@@ -147,7 +147,8 @@ def test_port_imports_no_jax(case):
     code = (
         "import sys\n" + _IMPORTS[case] +
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'pandas', 'networkx', 'gnn_track_finding_tpu')\n"
+        "       ('jax', 'flax', 'pandas', 'networkx', 'sklearn', 'matplotlib',\n"
+        "        'orbax', 'gnn_track_finding_tpu')\n"
         "       or m == 'tools.validate_vs_reference']\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

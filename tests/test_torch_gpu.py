@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
 card, the schedule's float64 counts through the kernels, and the host
 driver on the card (leak replay against the same driver on the CPU, host
-CCA labels, the reference digest).
+CCA labels, the reference digest), and the calibrated path (the clustering
+kernel under the runner's LUT thresholds, a calibrated toy run against the
+same run on the CPU).
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -20,15 +22,17 @@ import pytest
 import torch
 
 from gnn_track_finding_tpu_torch import testing
+from gnn_track_finding_tpu_torch.calib import lut, training_data
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
 from gnn_track_finding_tpu_torch.graph.build import build_event, build_graph_state
-from gnn_track_finding_tpu_torch.models import pipeline
+from gnn_track_finding_tpu_torch.models import pipeline, toymc
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel)
 
 VOL7_NPZ = (Path(__file__).resolve().parents[1] / ".event_cache"
             / "event_fafb3309e4598e9b.npz")
+FULL_NPZ = VOL7_NPZ.parent / "event_7bba1cb4ae95bca1.npz"
 CFG = PipelineConfig()
 
 
@@ -242,3 +246,64 @@ def test_reference_digest_on_the_card(cuda):
     assert (res["seed_cmp"], res["clus_cmp"], res["upd_cmp"]) == (14766, 8748,
                                                                   434)
     assert all(v == 1.0 for k, v in res.items() if not k.endswith("_cmp"))
+
+
+def _runner_lut(device):
+    """The LUT of the runner's calibration (20 toy events, seed 0, quantile
+    rule on emp_var)."""
+    rows = training_data.generate_training_data(num_events=20, seed=0,
+                                                device=device)
+    return lut.fit_lut_quantile(rows, feature="emp_var")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_updated", [False, True], ids=["seed", "updated"])
+def test_cluster_kernel_matches_plain_under_lut_thresholds(cuda, use_updated):
+    """The full event's compacted rows under the runner's per-node LUT
+    thresholds (0 to 4.1e8, mixed inside each warp): the seed round after
+    prepare, the updated round after iterations 1 and 2 under the same
+    thresholds; bitwise at float64."""
+    xyzr, vivl, tp, pairs, _, pre = load_npz(FULL_NPZ)
+    cfg = PipelineConfig(min_volume=7, max_volume=14)
+    g = build_graph_state(xyzr, vivl, tp, pairs, cfg, device=cuda,
+                          mirror=pre["mirror"], component=pre["component"])
+    thr = lut.node_thresholds(_runner_lut(cuda), g, cfg)
+    g = pipeline.prepare(g, cfg)
+    if use_updated:
+        for i in (1, 2):
+            g, _ = pipeline.iteration(g, cfg, i, thr)
+    x = clustering.core_inputs(g, cfg, use_updated, thr)
+    assert torch.unique(x.klthr).numel() > 2
+    inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
+    want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=x.chi2_thr,
+                                             cfg=cfg)
+    got = cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr, cfg=cfg)
+    torch.cuda.synchronize()
+    assert want[0].any()
+    _assert_core_equal(got, want, torch.float64)
+
+
+@pytest.mark.gpu
+def test_calibrated_toy_run_on_the_card_matches_the_cpu(cuda):
+    """The runner's --toy --calibrate path (run_pipeline with the LUT
+    thresholds and the tracker) on the card and on CPU tensors: the same
+    thresholds, mutations and candidate nodes; p-values to rtol 1e-6 (see
+    test_host_driver_states_on_the_card_match_the_cpu_driver)."""
+    cfg = PipelineConfig(node_bucket=256, edge_bucket=1024)
+    table = _runner_lut(cuda)
+    ev = toymc.generate_event(num_tracks=50, seed=1)
+    runs, thresholds = [], []
+    for device in (cuda, torch.device("cpu")):
+        g, host = build_event(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, cfg,
+                              device=device)
+        thr = lut.node_thresholds(table, g, cfg)
+        thresholds.append(thr.cpu())
+        runs.append(pipeline.run_pipeline(g, cfg, kl_thresholds=thr,
+                                          tracker=host.tracker))
+    card, cpu = runs
+    assert torch.equal(*thresholds) and thresholds[0].unique().numel() > 1
+    assert card.mutations == cpu.mutations
+    cands = lambda r: [(c.iteration, c.nodes.tolist()) for c in r.candidates]
+    assert cands(card) == cands(cpu) and card.candidates
+    pv = lambda r: [(c.pval_xy, c.pval_zr) for c in r.candidates]
+    np.testing.assert_allclose(pv(card), pv(cpu), rtol=1e-6, atol=0)
