@@ -50,7 +50,20 @@ kernels against their plain PyTorch versions on the card:
      run_pipeline with the tracker against the JAX package's counts;
      stats_harness.accumulate_pvals over 10 toy runs against CPU tensors;
      and `python -m gnn_track_finding_tpu_torch.run --toy` and
-     `--event <volume 7> --calibrate` as subprocesses.
+     `--event <volume 7> --calibrate` as subprocesses;
+  9. the edge-partitioned schedule (parallel/edge_shard.py) on the full
+     event at float64: 2 ranks over gloo on this one card (rank processes
+     started with spawn, after phase 2 built the kernels), then 1 rank
+     over NCCL, each against the single-device port (counts, candidates,
+     the gathered state: masks and integers exact, floats rtol 1e-12 and
+     grad_stats' variances to 1e-12 of their second moment); volume 7
+     twice through run_batched on a (2, 1) mesh, each event bitwise the
+     single-device run's; both kernels against their plain versions on
+     each rank's owner rows (both clustering rounds, the first reweight
+     pass), bitwise, and their device times and bounds there; the
+     sharded per-event wall (best of 3), the census of collectives (bytes
+     per collective and caller), and each kernel's launches per rank.
+     Two ranks on one card measure the code path, not scaling.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -513,6 +526,160 @@ def calibration_phase(card, cuda, graph, counts, events):
     return lut_record, calibrated_launches
 
 
+def sharded_phase(card, cuda, graph):
+    """Phase 9: the edge-partitioned schedule.  Returns each kernel's
+    record on the owner rows and its launches per rank on the sharded
+    path."""
+    from collections import defaultdict
+
+    from gnn_track_finding_tpu_torch import testing
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                                 distinct_kernel)
+    f64 = torch.float64
+    out_dir = REPO / "build" / "smoke_sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"card: {card}")
+
+    def single(path):
+        g, cfg = graph(path, f64)
+        res = pipeline.full_pipeline_results(g, cfg)
+        return res, res.graph.to_numpy()
+
+    def same_candidates(rank_out, res, rtol):
+        return (rank_out["acc_count"] == res.acc_count.tolist()
+                and np.array_equal(rank_out["acc_nodes"],
+                                   res.acc_nodes.cpu().numpy())
+                and np.allclose(rank_out["acc_pvals"],
+                                res.acc_pvals.cpu().numpy(), rtol=rtol,
+                                atol=0))
+
+    ref, ref_graph = single(FULL)
+    ref7, ref7_graph = single(VOL7)
+    check(ref.acc_count.tolist() == EXPECTED_F64[FULL],
+          "single-device full-event counts")
+    schedule = dict(event={"npz": str(FULL)}, reps=3, check_kernels=True)
+    # the 2 gloo ranks also run run_batched: volume 7 twice on a (2, 1) mesh
+    t0 = time.perf_counter()
+    gloo = testing.spawn_ranks(
+        "sequence", 2, out_dir / "gloo", device="cuda:0", timeout=300,
+        jobs=[("schedule", dict(schedule, kernel_inputs=True)),
+              ("batched", dict(events=[{"npz": str(VOL7)}] * 2,
+                               shape=(2, 1)))]).join()
+    t_gloo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = testing.spawn_ranks("schedule", 1, out_dir / "nccl",
+                               backend="nccl", device="cuda:0", timeout=300,
+                               **schedule).join()
+    runs = {"gloo": [r[0] for r in gloo], "nccl": nccl}
+    print(f"rank processes: gloo world of 2 {t_gloo:.1f} s, NCCL world of 1 "
+          f"{time.perf_counter() - t0:.1f} s (start, ingest, runs, checks)")
+    for backend, label in (("gloo", "gloo, 2 ranks on cuda:0"),
+                           ("nccl", "NCCL, 1 rank")):
+        ranks = runs[backend]
+        r0 = ranks[0]
+        bad = testing.states_differ(ref_graph, r0["graph"], rtol=1e-12)
+        bitwise = not testing.states_differ(ref_graph, r0["graph"], rtol=0.0)
+        print(f"{FULL.name} schedule_sharded float64, {label}: accepted "
+              f"{r0['acc_count']} (single device {ref.acc_count.tolist()}), "
+              f"FastSV rounds {r0['cca_rounds']}, bucket {r0['bucket']}; "
+              f"per-event wall {[round(w, 4) for w in r0['walls']]} s, best "
+              f"{min(r0['walls']):.4f} s (single device: see phase 6); "
+              f"gathered state within the bars: {not bad}, bitwise: "
+              f"{bitwise}")
+        check(r0["acc_count"] == EXPECTED_F64[FULL], f"{label}: counts")
+        check(same_candidates(r0, ref, 1e-12), f"{label}: candidates differ "
+              "from the single-device port's")
+        check(not bad, f"{label}: gathered state differs: {bad}")
+        for rank, o in enumerate(ranks):
+            print(f"  rank {rank}: kernel launches {o['launches']}; owner "
+                  f"rows against the plain versions {o['kernel_checks']}")
+            check(all(v > 0 for v in o["launches"].values()),
+                  f"{label}: rank {rank} launched a kernel no time")
+            check(all(c["bitwise"] for c in o["kernel_checks"].values()),
+                  f"{label}: rank {rank}: a kernel differs from its plain "
+                  "version on the owner rows")
+            check(o["acc_count"] == r0["acc_count"],
+                  f"{label}: ranks disagree on the candidates")
+        census = defaultdict(lambda: [0, 0])
+        for c in r0["census"]:
+            key = (c["caller"], c["op"], c["dtype"])
+            census[key][0] += 1
+            census[key][1] += c["bytes"]
+        print(f"  census of one run (rank 0 sends; caller, collective, "
+              f"dtype: calls, bytes): {sum(v[1] for v in census.values())} "
+              f"bytes in {sum(v[0] for v in census.values())} collectives")
+        for key, (n, b) in sorted(census.items()):
+            print(f"    {key}: {n}, {b}")
+        on_host = sorted({c["op"] for o in ranks for c in o["census"]
+                          if c["device"] != "cuda"})
+        check(not on_host, f"{label}: collectives on host tensors: {on_host}")
+        print(f"  host-staged collectives: none ({backend} was handed the "
+              f"CUDA tensors of all {len(r0['census'])} collectives)")
+
+    per_event = {i: o for r in gloo for i, o in r[1].items()}
+    check(sorted(per_event) == [0, 1], "run_batched: events per rank")
+    for i, o in sorted(per_event.items()):
+        check(same_candidates(o, ref7, 0.0)
+              and not testing.states_differ(ref7_graph, o["graph"], rtol=0.0),
+              f"run_batched event {i} differs from the single-device run")
+    print(f"run_batched on a (2, 1) mesh (the gloo ranks), volume 7 twice: "
+          f"accepted {[per_event[i]['acc_count'] for i in (0, 1)]}, each "
+          f"event bitwise the single-device run's")
+
+    # -- both kernels on rank 0's owner rows (D = 2): device time, plain
+    # version and bound, as in phase 6
+    cfg = graph(FULL, f64)[1]
+    inputs = runs["gloo"][0]["kernel_inputs"]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
+    owner = {}
+    put = lambda a: torch.from_numpy(a).to(cuda)
+    for rnd in ("seed", "updated"):
+        a = inputs[f"cluster_{rnd}"]
+        x = clustering.CoreInputs(
+            ids=None, tab=put(a["tab"]),
+            states=cluster_kernel.unpack_states(put(a["packed"])),
+            node_xyzr=put(a["node_xyzr"]), klthr=put(a["klthr"]),
+            chi2_thr=a["chi2_thr"], member_slot=None)
+        args = (x.states, x.tab, x.node_xyzr, x.klthr)
+        core_case(f"owner rows (rank 0 of 2), {rnd} round float64", args,
+                  cfg, f64, x.chi2_thr, check_found=x.tab.shape[0] > 0)
+
+        def run():
+            return cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr,
+                                               cfg=cfg)
+
+        rec = {"rows": int(x.tab.shape[0]),
+               "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
+               "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
+                   *args, chi2_thr=x.chi2_thr, cfg=cfg), reps=5),
+               **cluster_bound(x, run(), cfg)}
+        owner[f"gmr_cluster {rnd}"] = rec
+    a = inputs["distinct"]
+    ok, xx, nx = put(a["ok"]), put(a["x"]), put(a["node_x"])
+    run = lambda: distinct_kernel.distinct_counts(ok, xx, nx)
+    check(torch.equal(run(), distinct_kernel.distinct_counts_plain(
+        ok, xx, xx < nx[:, None], f64)), "distinct counts on the owner rows")
+    owner["distinct_counts"] = {
+        "rows": int(ok.shape[0]), "ms": device_ms(run, flush=flush),
+        "ms_warm_l2": device_ms(run),
+        "plain_ms": call_ms(lambda: distinct_kernel.distinct_counts_plain(
+            ok, xx, xx < nx[:, None], f64)), **distinct_bound(ok, xx)}
+    del flush
+    for key, rec in owner.items():
+        print(f"{key} on rank 0's owner rows ({rec['rows']} rows): kernel "
+              f"device time {rec['ms']:.4f} ms (L2 flushed), "
+              f"{rec['ms_warm_l2']:.4f} ms (warm), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}: {rec['bytes']} bytes, {rec['ops']} ops)")
+    launches = {name: {"gloo_2_ranks": [o["launches"][name]
+                                        for o in runs["gloo"]],
+                       "nccl_1_rank": runs["nccl"][0]["launches"][name]}
+                for name in ("gmr_cluster", "distinct_counts")}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return owner, launches
+
+
 def main() -> int:
     phase("1. device")
     if not torch.cuda.is_available():
@@ -931,6 +1098,9 @@ def main() -> int:
     lut_record, calibrated_launches = calibration_phase(card, cuda, graph,
                                                         counts, events)
 
+    phase("9. the edge-partitioned schedule (float64)")
+    owner, sharded_launches = sharded_phase(card, cuda, graph)
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
@@ -950,6 +1120,9 @@ def main() -> int:
              "plain_ms": times["gmr_cluster updated float64 plain"],
              **bounds["gmr_cluster updated float64"]},
          "lut_thresholds": lut_record,
+         "launches_sharded": sharded_launches["gmr_cluster"],
+         "owner_rows": {rnd: owner[f"gmr_cluster {rnd}"]
+                        for rnd in ("seed", "updated")},
          "times": {k: v for k, v in times.items()
                    if k.startswith(("gmr_cluster", "cluster stage"))},
          "occupancy": {k: v for k, v in occupancy.items()
@@ -967,6 +1140,8 @@ def main() -> int:
             for k in ("bound_ms", "bound_by")},
          "library_ms": None,
          "shape": "full event reweight tables (57,344 x 64), float64",
+         "launches_sharded": sharded_launches["distinct_counts"],
+         "owner_rows": owner["distinct_counts"],
          "times": {k: v for k, v in times.items()
                    if k.startswith("distinct_counts")},
          "occupancy": {k: v for k, v in occupancy.items()

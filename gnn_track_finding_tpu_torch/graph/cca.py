@@ -8,6 +8,12 @@ hook the larger onto the smaller (one scatter-min at the larger parent),
 then labels shortcut twice (f <- f[f]).  The loop runs eagerly: one host
 sync per round reads the convergence flag.  Labels are the minimum node
 index of each weak component.
+
+Under an edge partition (`group`, JAX cca.py:138-141,179,186-188) each
+rank hooks with its local pairs and the partial hooks combine by one (N,)
+all-reduce MIN before the shortcut, in the first round and in the loop;
+the combined labels are the same on every rank, and so is the
+convergence flag.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ from typing import Tuple
 
 import torch
 
+from gnn_track_finding_tpu_torch.ops import collect
 
-def connected_components_fastsv(g, edge_ok: torch.Tensor
+
+def connected_components_fastsv(g, edge_ok: torch.Tensor, group=None
                                 ) -> Tuple[torch.Tensor, int]:
     """-> (labels (N,) int64, rounds).  Masked-out nodes keep their own
     index.  `rounds` counts the hooking rounds, the specialised first one
@@ -33,10 +41,10 @@ def connected_components_fastsv(g, edge_ok: torch.Tensor
         f = f[f]
         return f[f]
 
-
     def hook(f, lo_e, hi_e):
         # masked pairs carry (lo = n, hi = 0): a no-op min at row 0
-        return f.scatter_reduce(0, hi_e, lo_e, "amin", include_self=True)
+        return collect.allmin(
+            f.scatter_reduce(0, hi_e, lo_e, "amin", include_self=True), group)
 
     # first round specialised: with f == identity, f[u] == u and f[v] == v
     f = shortcut(hook(init, torch.where(ok, torch.minimum(a, b), n),

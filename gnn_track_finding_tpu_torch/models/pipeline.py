@@ -11,6 +11,12 @@ Port of `gnn_track_finding_tpu.models.pipeline` (pipeline.py:34-86,
   after every iter   : candidate extraction (CCA + KF fit)
   after even iters   : state-metadata pruning
 
+`group` / `routing` (JAX pipeline.py:34-149) run a stage, an iteration or
+the whole schedule edge-partitioned: each rank of the group holds its
+block of the edge arrays and calls the same function
+(parallel/edge_shard.py).  With group=None every function is the
+single-device one.
+
 Two drivers run it.  `run_pipeline_fast` / `stream_pipeline` (production)
 run everything eagerly on the device that holds the GraphState; the host
 syncs once per FastSV round and once per extraction (for the exact
@@ -37,53 +43,83 @@ from gnn_track_finding_tpu_torch.ops import (clustering, extract, extrapolate,
                                              metadata, priors, seeding)
 
 
-def prepare(g: GraphState, cfg: PipelineConfig) -> GraphState:
+def prepare(g: GraphState, cfg: PipelineConfig, group=None) -> GraphState:
     """Event-conversion tail (event_conversion.py:92-101)."""
-    g = seeding.seed_track_states(g, cfg)
+    g = seeding.seed_track_states(g, cfg, group)
     g = priors.initialize_edge_activation(g)
-    g = priors.compute_prior_probabilities(g, use_updated=False)
-    g = priors.compute_mixture_weights(g, use_updated=False)
-    return priors.update_degrees(g)
+    g = priors.compute_prior_probabilities(g, use_updated=False, group=group)
+    g = priors.compute_mixture_weights(g, use_updated=False, group=group)
+    return priors.update_degrees(g, group)
 
 
 def cluster_stage(g: GraphState, cfg: PipelineConfig, use_updated: bool,
-                  kl_thresholds: torch.Tensor | None = None) -> GraphState:
+                  kl_thresholds: torch.Tensor | None = None,
+                  group=None, routing=None) -> GraphState:
     """Clustering iteration incl. the weight/prior recompute and degree
     update (clustering.py:323-327,372-373)."""
-    g = clustering.cluster(g, cfg, use_updated, kl_thresholds)
-    g = priors.update_degrees(g)
-    g = priors.compute_mixture_weights(g, use_updated)
-    return priors.compute_prior_probabilities(g, use_updated)
+    g = clustering.cluster(g, cfg, use_updated, kl_thresholds, group=group,
+                           routing=routing)
+    g = priors.update_degrees(g, group)
+    g = priors.compute_mixture_weights(g, use_updated, group)
+    return priors.compute_prior_probabilities(g, use_updated, group)
 
 
-def extrapolation_stage(g: GraphState, cfg: PipelineConfig) -> GraphState:
-    """Extrapolation iteration: message passing, then the table-resident
-    double prior/reweight and degree refresh
-    (extrapolate_merged_states.py:554-566)."""
-    g = extrapolate.message_passing(g, cfg)
-    return priors.reweight_stage(g, cfg, n_passes=2)
+def extrapolation_stage(g: GraphState, cfg: PipelineConfig, group=None,
+                        routing=None) -> GraphState:
+    """Extrapolation iteration: message passing, then the double
+    prior/reweight and degree refresh (extrapolate_merged_states.py:
+    554-566): table-resident on one device, two prior_reweight passes
+    under a group (JAX pipeline.py:68-86)."""
+    g = extrapolate.message_passing(g, cfg, group)
+    if group is None:
+        return priors.reweight_stage(g, cfg, n_passes=2)
+    g = priors.prior_reweight(g, cfg, group, routing)
+    g = priors.prior_reweight(g, cfg, group, routing)
+    return priors.update_degrees(g, group)
 
 
 def stage_step(g: GraphState, cfg: PipelineConfig, i: int,
-               kl_thresholds: torch.Tensor | None = None) -> GraphState:
+               kl_thresholds: torch.Tensor | None = None,
+               group=None, routing=None) -> GraphState:
     """The pre-extraction stage of iteration i (schedule in module doc)."""
     if i % 2 == 0:
-        return extrapolation_stage(g, cfg)
+        return extrapolation_stage(g, cfg, group, routing)
     return cluster_stage(g, cfg, use_updated=i > 1,
-                         kl_thresholds=kl_thresholds)
+                         kl_thresholds=kl_thresholds, group=group,
+                         routing=routing)
+
+
+def metadata_step(g: GraphState, cfg: PipelineConfig, group=None,
+                  routing=None) -> GraphState:
+    """State-metadata pruning (JAX pipeline.py:114-125): the table-resident
+    pass on one device; under a group the same semantics through the
+    collective-aware passes."""
+    if group is None:
+        return metadata.remove_state_metadata(g, cfg)
+    g = g.replace(has_updated=g.has_updated & g.edge_mask)
+    g = priors.compute_prior_probabilities(g, use_updated=False, group=group)
+    g = priors.prior_reweight(g, cfg, group, routing)
+    return priors.update_degrees(g, group)
+
+
+def extract_step(g: GraphState, cfg: PipelineConfig, i: int, group=None,
+                 routing=None) -> Tuple[GraphState, extract.ExtractionResult]:
+    """Extraction + node removal + (even iterations) metadata pruning."""
+    res = extract.extract_candidates(g, cfg, group=group)
+    g = extract.apply_extraction(g, res, cfg)
+    if i % 2 == 0:
+        g = metadata_step(g, cfg, group, routing)
+    return g, res
 
 
 def iteration(g: GraphState, cfg: PipelineConfig, i: int,
-              kl_thresholds: torch.Tensor | None = None
+              kl_thresholds: torch.Tensor | None = None,
+              group=None, routing=None
               ) -> Tuple[GraphState, extract.ExtractionResult]:
     """One full iteration: stage, extraction + node removal, and (even
     iterations) metadata pruning."""
-    g = stage_step(g, cfg, i, kl_thresholds)
-    res = extract.extract_candidates(g, cfg)
-    g = extract.apply_extraction(g, res, cfg)
-    if i % 2 == 0:
-        g = metadata.remove_state_metadata(g, cfg)
-    return g, res
+    g = stage_step(g, cfg, i, kl_thresholds, group, routing)
+    return extract_step(g, cfg, i, group, routing)
 
 
 def reset_reactivate(g: GraphState, cfg: PipelineConfig) -> GraphState:
@@ -104,14 +140,15 @@ class ScheduleResults(NamedTuple):
     cca_rounds: List[int]       # FastSV rounds per extraction
 
 
-def full_pipeline_results(g: GraphState, cfg: PipelineConfig
-                          ) -> ScheduleResults:
+def full_pipeline_results(g: GraphState, cfg: PipelineConfig, group=None,
+                          routing=None) -> ScheduleResults:
     """The whole schedule; accepted candidates of every iteration, in
-    iteration then row order, left on the device."""
-    g = prepare(g, cfg)
+    iteration then row order, left on the device (under a group: the
+    same on every rank, the graph the rank's block)."""
+    g = prepare(g, cfg, group)
     counts, nodes, pvals, rounds = [], [], [], []
     for i in range(1, cfg.num_iterations + 1):
-        g, res = iteration(g, cfg, i)
+        g, res = iteration(g, cfg, i, group=group, routing=routing)
         counts.append(res.acc_nodes.shape[0])
         nodes.append(res.acc_nodes)
         pvals.append(res.acc_pvals)

@@ -52,15 +52,27 @@ def member_mask(tab: torch.Tensor) -> torch.Tensor:
     return torch.cumprod((tab >= 0).to(torch.uint8), dim=1).bool()
 
 
-def pack_rows(states: SlotStates, tab: torch.Tensor):
-    """The packed (rows, kc, 29) slot rows [p_sv 0:3 | p_cov 3:12 | j_sv 12:15
-    | j_cov 15:24 | prior 24 | nb_xyzr 25:29] of the JAX core, and their
-    (rows, kc) member mask.  Padding slots repeat edge 0."""
-    packed = torch.cat([
+def pack_states(states: SlotStates) -> torch.Tensor:
+    """The (E, 29) packed state rows [p_sv 0:3 | p_cov 3:12 | j_sv 12:15 |
+    j_cov 15:24 | prior 24 | nb_xyzr 25:29] of the JAX core."""
+    return torch.cat([
         states.p_sv, states.p_cov.reshape(-1, 9), states.j_sv,
         states.j_cov.reshape(-1, 9), states.prior[:, None], states.xyzr],
         dim=1)
-    return packed[torch.clamp(tab, min=0)], member_mask(tab)
+
+
+def unpack_states(packed: torch.Tensor) -> SlotStates:
+    """Column views of (E, 29) packed state rows (strides 29, 3, 1)."""
+    return SlotStates(
+        packed[:, 0:3], packed[:, 3:12].unflatten(1, (3, 3)),
+        packed[:, 12:15], packed[:, 15:24].unflatten(1, (3, 3)),
+        packed[:, 24], packed[:, 25:29])
+
+
+def pack_rows(states: SlotStates, tab: torch.Tensor):
+    """The packed (rows, kc, 29) slot rows of the JAX core, and their
+    (rows, kc) member mask.  Padding slots repeat edge 0."""
+    return pack_states(states)[torch.clamp(tab, min=0)], member_mask(tab)
 
 
 def _pairwise_chi2(node_xyzr, cfg: PipelineConfig, nb_xyzr, valid, joint,

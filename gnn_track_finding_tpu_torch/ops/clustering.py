@@ -13,6 +13,11 @@ CUDA kernel on the card reads the member slots through the ids, the plain
 version on the CPU gathers packed rows first — and the narrow results
 scatter back to node space.  Every scatter writes one value per real cell;
 out-of-range writes go to one extra dump row that is sliced off.
+
+Under an edge partition (`group` and `routing`, JAX clustering.py:186-224,
+293-386) each rank routes its edges' state rows to their head node's
+owner rank, runs the same core on its gated owner rows, and the narrow
+results are gathered back (`owner_core_inputs`, `cluster`).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph.state import GraphState, slot_table
-from gnn_track_finding_tpu_torch.ops import cluster_kernel
+from gnn_track_finding_tpu_torch.ops import cluster_kernel, collect
 
 KC = 16  # compact table width == reference's upper degree gate
 
@@ -107,28 +112,110 @@ def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
                       member_slot=member_slot)
 
 
+def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
+                      group, routing,
+                      kl_thresholds: torch.Tensor | None = None,
+                      kc: int = KC) -> CoreInputs:
+    """The compacted rows of THIS rank's gated owner nodes (JAX
+    clustering.py:293-369), under the edge partition.
+
+    The (N, K) membership table is OR-combined over the group; every
+    edge's packed state row [p_sv | p_cov | j_sv | j_cov | prior | xyzr]
+    (29 values) rides one all_to_all to its head's owner.  The received
+    (D * bucket, 29) buffer is the core's per-edge tensors, read through
+    column views, and `tab` holds positions in that buffer.  Owner rows
+    are the interleaved nodes r*D + rank; `ids` are owner rows.  The gated
+    rows are counted exactly, as in core_inputs."""
+    n, k_tab = g.in_edges.shape
+    d = routing.n_shards
+    rows = n // d
+    member = (g.has_updated if use_updated else g.edge_mask) & g.edge_mask
+    member_slot = collect.allor(_member_slots(g, member), group)
+    recv = collect.route_to_owners(
+        cluster_kernel.pack_states(round_states(g, use_updated)),
+        routing.owner, routing.pos, routing.bucket, group)
+    my = torch.distributed.get_rank(group)
+    rr = routing.recv_row[my].reshape(-1)
+    # each owner cell's position in the received buffer
+    pos_tab = slot_table(torch.where(rr >= 0, rr, rows),
+                         routing.recv_slot[my].reshape(-1),
+                         torch.arange(rr.shape[0], device=g.device), rows,
+                         k_tab, -1)
+    mem_own = collect.owner_block_interleaved(member_slot, group)
+    rank_own = torch.cumsum(mem_own, dim=1) - 1
+    ok = mem_own & (rank_own < kc)
+    r_idx = torch.arange(rows, device=g.device)[:, None].expand(rows, k_tab)
+    tab = slot_table(torch.where(ok, r_idx, rows).reshape(-1),
+                     torch.where(ok, rank_own, 0).reshape(-1),
+                     pos_tab.reshape(-1), rows, kc, -1)
+    count = torch.sum(mem_own, dim=1)
+    gate = ((count > cfg.cluster_min_edges - 1)
+            & (count < cfg.cluster_max_edges + 1))
+    chi2_thr, kl_thr = cfg.cluster_thresholds(use_updated)
+    ids = torch.nonzero(gate).squeeze(1)
+    if kl_thresholds is None:
+        klthr = torch.full(ids.shape, kl_thr, dtype=g.dtype, device=g.device)
+    else:
+        klthr = collect.owner_block_interleaved(kl_thresholds.to(g.dtype),
+                                                group)[ids]
+    return CoreInputs(ids=ids, tab=tab[ids],
+                      states=cluster_kernel.unpack_states(recv),
+                      node_xyzr=collect.owner_block_interleaved(g.xyzr,
+                                                                group)[ids],
+                      klthr=klthr, chi2_thr=chi2_thr, member_slot=member_slot)
+
+
+def _expand(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-row results scattered to n rows; other rows zero."""
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    out[ids] = vals
+    return out
+
+
 def cluster(g: GraphState, cfg: PipelineConfig, use_updated: bool,
             kl_thresholds: torch.Tensor | None = None,
-            kc: int = KC) -> GraphState:
+            kc: int = KC, group=None, routing=None) -> GraphState:
     """One GMR clustering round over the whole graph.
 
     kl_thresholds: optional per-node (N,) KL acceptance thresholds (the
-    calibration LUT); None -> the config's scalar threshold."""
+    calibration LUT); None -> the config's scalar threshold.
+    group, routing: the edge partition (parallel/edge_shard.py); the core
+    runs on each rank's owner rows and the (rows, 14) results and
+    (rows, kc) uint8 verdicts are gathered back, then put in node order by
+    the static interleaving permutation."""
     n = g.num_padded_nodes
-    x = core_inputs(g, cfg, use_updated, kl_thresholds, kc)
+    if group is None:
+        x = core_inputs(g, cfg, use_updated, kl_thresholds, kc)
+    else:
+        if routing is None:
+            raise ValueError("edge-partitioned clustering needs the owner "
+                             "routing (parallel/edge_shard.build_owner_routing)")
+        x = owner_core_inputs(g, cfg, use_updated, group, routing,
+                              kl_thresholds, kc)
     found_c, pm_c, pc_c, mprior_c, deact_c = cluster_kernel.cluster_core(
         x.states, x.tab, x.node_xyzr, x.klthr, chi2_thr=x.chi2_thr, cfg=cfg)
-
-    # scatter the narrow per-row results back to node space
-    def expand(vals):
-        out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                          device=g.device)
-        out[x.ids] = vals
-        return out
-
-    return _apply_cluster_results(
-        g, x.member_slot, expand(found_c), expand(pm_c),
-        expand(pc_c).reshape(n, 3, 3), expand(mprior_c), expand(deact_c), kc)
+    if group is None:
+        # scatter the narrow per-row results back to node space
+        found, pm, pc, mprior, deact = (
+            _expand(v, x.ids, n) for v in (found_c, pm_c, pc_c, mprior_c,
+                                           deact_c))
+    else:
+        d = routing.n_shards
+        rows = n // d
+        res = collect.gather_rows(_expand(torch.cat([
+            found_c[:, None].to(g.dtype), pm_c, pc_c, mprior_c[:, None]],
+            dim=1), x.ids, rows), group)                          # (N, 14)
+        deact = collect.gather_rows(
+            _expand(deact_c.to(torch.uint8), x.ids, rows), group) > 0
+        # owner-major -> node order: node i is row (i % D) * rows + i // D
+        i = torch.arange(n, device=g.device)
+        perm = (i % d) * rows + i // d
+        res, deact = res[perm], deact[perm]
+        found, pm, pc, mprior = res[:, 0] > 0.5, res[:, 1:4], res[:, 4:13], \
+            res[:, 13]
+    return _apply_cluster_results(g, x.member_slot, found, pm,
+                                  pc.reshape(n, 3, 3), mprior, deact, kc)
 
 
 def _apply_cluster_results(g: GraphState, member_slot, found, pm, pc, mprior,

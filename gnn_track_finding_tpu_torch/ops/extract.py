@@ -278,17 +278,22 @@ def _kf_fit(coords, n_hits, cfg: PipelineConfig):
 
 
 def extract_candidates(g: GraphState, cfg: PipelineConfig,
-                       labels: torch.Tensor | None = None) -> ExtractionResult:
+                       labels: torch.Tensor | None = None,
+                       group=None) -> ExtractionResult:
     """One extraction round over the active edges (extract.py:334-406).
 
     labels: (N,) component labels computed elsewhere (the minimum node
     index of each weak component over the active edges, as the host
     union-find of data/native_loader.py gives them); FastSV on the device
-    when absent.  cca_rounds is 0 when labels are given."""
+    when absent.  cca_rounds is 0 when labels are given.
+    group: the edge partition's process group, which FastSV combines its
+    hooks over (JAX extract.py:334-361); everything after the labels is
+    node- and candidate-space work on replicated inputs, the same on
+    every rank."""
     h = cfg.max_track_hits
     if labels is None:
         labels, rounds = cca.connected_components_fastsv(
-            g, g.edge_mask & g.active)
+            g, g.edge_mask & g.active, group)
     else:
         rounds = 0
     mat, size, row_of_node = _candidate_matrix(g, labels, h,

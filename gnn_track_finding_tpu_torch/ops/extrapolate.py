@@ -17,6 +17,13 @@ Sequential-semantics reproduction under bug_compat (extrapolate.py:15-27):
   * the joint covariance aliases the updated covariance (ref :362-365);
   * the updated state's weight comes from the REVERSE edge e ^ 1's seed
     state (ref :384).
+
+Under an edge partition (`group`, JAX extrapolate.py:152-190) a rank's
+out-table holds only its own edges, and a cumsum cannot be taken over a
+partial table: the ranks OR-combine the out-table activity flags (uint8)
+and recompute the whole (N, K) var_ms table from replicated node data and
+the out-table head coordinates, with the per-edge formula's operations in
+its order, so the table and its cumsum equal the single-device ones.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph.state import GraphState, slot_table
-from gnn_track_finding_tpu_torch.ops import linalg
+from gnn_track_finding_tpu_torch.ops import collect, linalg
 from gnn_track_finding_tpu_torch.ops.seeding import rz_sigmas
 
 
@@ -71,7 +78,24 @@ def _jacobian_and_transport(a, b, c, x_A, sp, cp):
     ], dim=-2)
 
 
-def message_passing(g: GraphState, cfg: PipelineConfig) -> GraphState:
+def _var_ms(a, b, tail_xyzr, head_xyzr, cfg: PipelineConfig, tiny):
+    """Highland multiple-scattering variance of a step from the tail
+    (merged state a, b) to the head (ref :112-124; global head x)."""
+    dr = head_xyzr[..., 3] - tail_xyzr[..., 3]
+    dz = head_xyzr[..., 2] - tail_xyzr[..., 2]
+    hyp = torch.sqrt(dr * dr + dz * dz)
+    sin_t = torch.abs(dr) / torch.clamp(hyp, min=tiny)
+    u = 2.0 * a * head_xyzr[..., 0] + b
+    rs = torch.rsqrt(1.0 + u * u)
+    kappa = (2.0 * a) * (rs * rs * rs)
+    var_ms = sin_t * cfg.ms_coefficient() * kappa * kappa
+    endcap_n = torch.abs(tail_xyzr[..., 2]) >= cfg.endcap_boundary
+    return torch.where(endcap_n, var_ms * torch.abs(dr) / torch.abs(dz),
+                       var_ms)
+
+
+def message_passing(g: GraphState, cfg: PipelineConfig,
+                    group=None) -> GraphState:
     """One extrapolation round: per-edge updated states, chi2-failed edges
     deactivated, and (bug_compat) the tails' merged covariances advanced
     by their accumulated var_ms."""
@@ -92,21 +116,25 @@ def message_passing(g: GraphState, cfg: PipelineConfig) -> GraphState:
     # --- multiple scattering per edge (ref :112-124; global head x) ---
     dr = mr_ - nr_
     dz = mz_ - nz_
-    hyp = torch.sqrt(dr * dr + dz * dz)
-    sin_t = torch.abs(dr) / torch.clamp(hyp, min=tiny)
-    u = 2.0 * a * mx_ + b
-    rs = torch.rsqrt(1.0 + u * u)
-    kappa = (2.0 * a) * (rs * rs * rs)
-    var_ms = sin_t * cfg.ms_coefficient() * kappa * kappa
-    endcap_n = torch.abs(nz_) >= cfg.endcap_boundary
-    var_ms = torch.where(endcap_n, var_ms * torch.abs(dr) / torch.abs(dz),
-                         var_ms)
-    var_ms = torch.where(proc, var_ms, 0.0)
+    var_ms = torch.where(proc, _var_ms(a, b, tail_xyzr, head_xyzr, cfg, tiny),
+                         0.0)
 
     # --- cumulative in-place merged_cov mutation (ref :127-128) ---
     if cfg.bug_compat:
-        slot_ms = slot_table(torch.where(proc, g.src, n), g.slot_out, var_ms,
-                             n, k, 0.0)
+        if group is None:
+            slot_ms = slot_table(torch.where(proc, g.src, n), g.slot_out,
+                                 var_ms, n, k, 0.0)
+        else:
+            # the whole table from replicated data: activity flags of every
+            # rank's out-edges, each tail's merged state and coordinates,
+            # and the head coordinates cached in the out-table
+            active = collect.allor(slot_table(
+                torch.where(g.edge_mask & g.active, g.src, n), g.slot_out,
+                True, n, k, False), group)
+            proc_slot = active & g.has_merged[:, None] & (g.out_edges >= 0)
+            slot_ms = torch.where(proc_slot, _var_ms(
+                g.merged_state[:, 0:1], g.merged_state[:, 1:2],
+                g.gnn_xyzr[:, None, :], g.out_head_xyzr, cfg, tiny), 0.0)
         cum_e = torch.cumsum(slot_ms, dim=1)[g.src, g.slot_out]
         new_merged_cov = g.merged_cov.clone()
         new_merged_cov[:, 1, 1] += torch.where(g.has_merged,

@@ -12,7 +12,12 @@ recomputed from the mirror's tail coordinates (`mirror_src`).
 
 The per-node gradient statistics are row sums over the (N, K) in-edge
 table (one writer per cell) rather than a float scatter-add over edges,
-whose CUDA atomics would reorder the sum from run to run.
+whose CUDA atomics would reorder the sum from run to run.  Under an edge
+partition (`group`, JAX seeding.py:169-188) each rank sums the rows of its
+partial table (its own edges' cells) and the (N,) partials are all-summed:
+JAX's wire pattern.  That reassociates the sums at rank boundaries, so
+the statistics agree with the single-device ones to rtol 1e-12, not
+bitwise; everything else is per edge and bitwise.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph.state import GraphState, slot_table
-from gnn_track_finding_tpu_torch.ops import linalg
+from gnn_track_finding_tpu_torch.ops import collect, linalg
 
 
 def rz_sigmas(z, cfg: PipelineConfig):
@@ -73,9 +78,11 @@ def in_table_rowsum(g: GraphState, vals: torch.Tensor) -> torch.Tensor:
     return slot_table(row, g.slot_in, vals, n, k, 0.0).sum(dim=1)
 
 
-def seed_track_states(g: GraphState, cfg: PipelineConfig) -> GraphState:
+def seed_track_states(g: GraphState, cfg: PipelineConfig,
+                      group=None) -> GraphState:
     """Per-edge seed states for every directed edge, plus the per-node
-    edge-gradient statistics (helper.py:446-447)."""
+    edge-gradient statistics (helper.py:446-447); `group`: the edge
+    partition's process group (None: one device)."""
     sx, sy, sz, sr = (g.e_xyzr[:, i] for i in range(4))        # neighbour (tail)
     dx_, dy_, dz_, dr_ = (g.e_xyzr[:, 4 + i] for i in range(4))  # node (head)
 
@@ -133,18 +140,21 @@ def seed_track_states(g: GraphState, cfg: PipelineConfig) -> GraphState:
     em = g.edge_mask
     w = em.to(g.dtype)
     grad_xy = (sy - dy_) / (sx - dx_)
-    cnt = in_table_rowsum(g, w)
-    safe = torch.clamp(cnt, min=1.0)
+    gx = torch.where(em, grad_xy, 0.0)
+    gz = torch.where(em, tau, 0.0)
+    # the five per-node sums, partial under a group, combined in one call
+    sums = collect.allsum(torch.stack([
+        in_table_rowsum(g, v) for v in
+        (w, w * gx, w * gx * gx, w * gz, w * gz * gz)], dim=1), group)
+    safe = torch.clamp(sums[:, 0], min=1.0)
 
-    def mean_var(vals):
-        s1 = in_table_rowsum(g, w * vals)
-        s2 = in_table_rowsum(g, w * vals * vals)
+    def mean_var(s1, s2):
         mean = s1 / safe
         var = s2 / safe - mean * mean
         return mean, torch.clamp(var, min=0.0)
 
-    mx, vx = mean_var(torch.where(em, grad_xy, 0.0))
-    mz, vz = mean_var(torch.where(em, tau, 0.0))
+    mx, vx = mean_var(sums[:, 1], sums[:, 2])
+    mz, vz = mean_var(sums[:, 3], sums[:, 4])
     grad_stats = torch.stack([mx, vx, mz, vz], dim=-1)
 
     emv = em[:, None]

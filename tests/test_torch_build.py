@@ -139,6 +139,12 @@ _IMPORTS = {
                 "    importlib.import_module(m.name)\n"),
     # the digest tool the card runs (chip_smoke phase 7)
     "validate_port_tool": "import tools.validate_port_vs_reference\n",
+    # the multi-device path and the rank workers a spawned process imports
+    "parallel": ("import gnn_track_finding_tpu_torch.ops.collect\n"
+                 "import gnn_track_finding_tpu_torch.parallel.edge_shard\n"
+                 "import gnn_track_finding_tpu_torch.parallel.mesh\n"
+                 "import gnn_track_finding_tpu_torch.parallel.multihost\n"
+                 "import gnn_track_finding_tpu_torch.testing\n"),
 }
 
 

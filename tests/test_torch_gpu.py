@@ -3,7 +3,9 @@ card, the schedule's float64 counts through the kernels, and the host
 driver on the card (leak replay against the same driver on the CPU, host
 CCA labels, the reference digest), and the calibrated path (the clustering
 kernel under the runner's LUT thresholds, a calibrated toy run against the
-same run on the CPU).
+same run on the CPU), and the edge-partitioned schedule on the card (2
+gloo ranks on one card, 1 NCCL rank, the clustering kernel on routed
+owner rows).
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -307,3 +309,58 @@ def test_calibrated_toy_run_on_the_card_matches_the_cpu(cuda):
     assert cands(card) == cands(cpu) and card.candidates
     pv = lambda r: [(c.pval_xy, c.pval_zr) for c in r.candidates]
     np.testing.assert_allclose(pv(card), pv(cpu), rtol=1e-6, atol=0)
+
+
+@pytest.fixture(scope="module")
+def sharded_volume7(tmp_path_factory):
+    """schedule_sharded on volume 7 at float64 over 2 gloo ranks on
+    cuda:0 and over 1 NCCL rank (spawned processes; the kernels are built
+    here first, so the ranks load them), and the single-device run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from gnn_track_finding_tpu_torch import _build
+    _build.library()
+    root = tmp_path_factory.mktemp("sharded")
+    runs = {backend: testing.spawn_ranks(
+        "schedule", world, root / backend, backend=backend, device="cuda:0",
+        event={"npz": str(VOL7_NPZ)}, check_kernels=True).join()
+        for backend, world in (("gloo", 2), ("nccl", 1))}
+    ref = pipeline.full_pipeline_results(
+        _volume7(torch.device("cuda"), torch.float64), CFG)
+    return runs, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_volume7_on_the_card_matches_the_single_device_port(
+        sharded_volume7, backend):
+    """2 gloo ranks / 1 NCCL rank on the card: the counts [1055, 110, 2],
+    the single-device candidates (p-values bitwise) and the gathered state
+    (masks and integers exact, floats rtol 1e-12, grad_stats' variances to
+    1e-12 of their second moment); every rank launched both kernels."""
+    runs, ref = sharded_volume7
+    ranks = runs[backend]
+    out = ranks[0]
+    assert out["acc_count"] == ref.acc_count.tolist() == [1055, 110, 2]
+    np.testing.assert_array_equal(out["acc_nodes"], ref.acc_nodes.cpu().numpy())
+    np.testing.assert_array_equal(out["acc_pvals"], ref.acc_pvals.cpu().numpy())
+    bad = testing.states_differ(ref.graph.to_numpy(), out["graph"], rtol=1e-12)
+    assert not bad, bad
+    # the backend was handed every collective's CUDA tensor: nothing staged
+    assert {c["device"] for c in out["census"]} == {"cuda"}
+    for o in ranks:
+        assert all(n > 0 for n in o["launches"].values()), o["launches"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_kernels_on_routed_owner_rows_match_plain(sharded_volume7, backend):
+    """On every rank, the clustering kernel on the owner rows the
+    all_to_all routed to it (seed round; volume 7 gates no row in the
+    updated round) and the distinct counts of the first reweight pass,
+    bitwise against their plain versions."""
+    runs, _ = sharded_volume7
+    for o in runs[backend]:
+        checks = o["kernel_checks"]
+        assert checks["cluster_seed"]["found"] > 0
+        assert all(c["bitwise"] for c in checks.values()), checks
