@@ -11,7 +11,9 @@ kernels against their plain PyTorch versions on the card:
   3. GMR clustering kernel vs plain, bitwise at float64, on the real
      compacted rows of the full event (seed round after prepare, updated
      round after iteration 2) at float64 and float32, kc = 4 and kc = 32,
-     klthr 1e30 (full absorption), and the synthetic edge cases of
+     klthr 1e30 (full absorption), clean mode (bug_compat=False: the full
+     KL trace and the z endcap coordinate; ingest with the identity mirror)
+     in both rounds at float64, and the synthetic edge cases of
      testing.cluster_rows;
   4. distinct-count kernel vs plain, exact, on the real reweight tables
      (K = 64), a duplicate-rich table and the edge cases of
@@ -19,13 +21,15 @@ kernels against their plain PyTorch versions on the card:
   5. the slice: float64 accepted counts per iteration on the volume-7 and
      full events against the reference's, the float32 counts beside the
      plain path's (the same schedule on CPU tensors), the kernels' launch
-     counts in the main-path run, and a 3-event stream against the solo run;
+     counts in the main-path run, a 3-event stream against the solo run,
+     and the clean-mode volume-7 counts against the JAX package's;
   6. steady-state times: each kernel (device time with the L2 cache
      flushed before each call, and warm) and its plain version at the
      full-event shapes (both clustering rounds), the packed gather the
      kernel no longer needs, the clustering stage, each kernel's bound
      (the bytes and operations these inputs need, at 3.35 TB/s and the
-     dtype's peak), per-stage and per-event wall times, streamed events/s;
+     dtype's peak), the clean-mode rounds' times and bounds, per-stage and
+     per-event wall times, streamed events/s;
   7. the host driver `run_pipeline` at float64: on volume 7 and the full
      event, ingest that recomputes the set()-order mirror (checked against
      the cached one) and builds the NetworkX-order tracker, the driver with
@@ -49,7 +53,8 @@ kernels against their plain PyTorch versions on the card:
      full event, bitwise; device time and bound); the calibrated full-event
      run_pipeline with the tracker against the JAX package's counts;
      stats_harness.accumulate_pvals over 10 toy runs against CPU tensors;
-     and `python -m gnn_track_finding_tpu_torch.run --toy` and
+     and `python -m gnn_track_finding_tpu_torch.run --toy --json` (its
+     last line, the JSON summary, against the toy run) and
      `--event <volume 7> --calibrate` as subprocesses;
   9. the edge-partitioned schedule (parallel/edge_shard.py) on the full
      event at float64: 2 ranks over gloo on this one card (rank processes
@@ -63,7 +68,19 @@ kernels against their plain PyTorch versions on the card:
      pass), bitwise, and their device times and bounds there; the
      sharded per-event wall (best of 3), the census of collectives (bytes
      per collective and caller), and each kernel's launches per rank.
-     Two ranks on one card measure the code path, not scaling.
+     Two ranks on one card measure the code path, not scaling;
+ 10. the analysis and calibration studies at float64, each on the card
+     against the same call on CPU tensors, with both kernels' launches per
+     study: shared_hits.dendrogram_statistics over 10 toy runs (both
+     kernels), node_dendrogram_maxima on the full event after iteration 1's
+     clustering and iteration 2's extrapolation, calib.plots.
+     lut_effect_study (the clustering kernel under LUT thresholds) and
+     parabolic_vs_linear, community.detect_communities (Leiden) on volume 7
+     and the full event's final state (the filters), and the volume-7
+     run's pvals.csv and purity CSVs read back.  The plots,
+     plot_decision_boundary and the Louvain branch need matplotlib,
+     sklearn or networkx, which the card's machine lacks: they run only in
+     the CPU tests (tests/test_torch_studies.py).
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -105,6 +122,8 @@ EXPECTED_CALIBRATION = {
     "feature_bin_width": 705.5111035114334,
     "kl_bin_width": 4339417.077760651}
 EXPECTED_CALIBRATED_F64 = {VOL7: [1022, 14, 0], FULL: [1468, 71, 0]}
+# ... and its clean-mode (bug_compat=False) run_pipeline_fast on volume 7
+EXPECTED_CLEAN_F64 = [1056, 135, 1]
 # KL training rows of the full event (the port on CPU tensors)
 FULL_TRAINING_ROWS = 1_956_687
 TRAINING_BLOCK, CPU_TRAINING_BLOCK = 2048, 256
@@ -329,11 +348,11 @@ def calibration_phase(card, cuda, graph, counts, events):
     # -- the toy run of `run.py --toy`
     cfg = PipelineConfig(node_bucket=256, edge_bucket=1024)
     ev = toymc.generate_event(num_tracks=50, seed=1)
-    g, host = build_event(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, cfg,
-                          device=cuda)
+    g_toy, host = build_event(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, cfg,
+                              device=cuda)
     zero_launches()
     out, t_toy = sync_time(lambda: pipeline.run_pipeline(
-        g, cfg, tracker=host.tracker))
+        g_toy, cfg, tracker=host.tracker))
     toy_launches = launches()
     lists = [c.nodes for c in out.candidates]
     rep = efficiency.evaluate_toy(lists, ev.truth, ev.vivl, cfg)
@@ -503,8 +522,12 @@ def calibration_phase(card, cuda, graph, counts, events):
         for k in ("pvals_xy", "pvals_zr")),
         "accumulate_pvals differs between card and CPU")
 
-    # -- the runner's new paths as a user calls them
-    for args, want in ((["--toy"], EXPECTED_TOY["per_iteration"]),
+    # -- the runner's new paths as a user calls them; --json's summary is
+    # the last line
+    for args, want in ((["--toy", "--json"],
+                        {"nodes": g_toy.n_nodes, "edges": g_toy.n_edges,
+                         "candidates": sum(EXPECTED_TOY["per_iteration"]),
+                         "pure": EXPECTED_TOY["pure"]}),
                        (["--event", str(VOL7), "--calibrate"],
                         EXPECTED_CALIBRATED_F64[VOL7])):
         t0 = time.perf_counter()
@@ -518,6 +541,12 @@ def calibration_phase(card, cuda, graph, counts, events):
         for line in lines:
             print("  " + line)
         check(proc.returncode == 0, f"run.py {args}: {proc.stderr[-2000:]}")
+        if "--json" in args:
+            summary = json.loads(lines[-1])
+            check({k: summary.get(k) for k in want} == want
+                  and summary["pipeline_seconds"] > 0,
+                  f"run.py {args}: summary {summary} differs from {want}")
+            continue
         found = [re.search(r"candidates (\[[0-9, ]*\])", line)
                  for line in lines if line.startswith("[pipeline]")]
         check(bool(found) and found[0] is not None
@@ -680,7 +709,203 @@ def sharded_phase(card, cuda, graph):
     return owner, launches
 
 
+def studies_phase(card, cuda, graph, events):
+    """Phase 10: the analysis and calibration studies on the card, each
+    against the same call on CPU tensors.  Returns both kernels' launches
+    per study (each study's counts zeroed before it and read after)."""
+    import csv
+    import warnings
+
+    from gnn_track_finding_tpu_torch.analysis import (community,
+                                                      distributions,
+                                                      shared_hits)
+    from gnn_track_finding_tpu_torch.calib import plots
+    from gnn_track_finding_tpu_torch.config import PipelineConfig
+    from gnn_track_finding_tpu_torch.data import event_cache, trackml
+    from gnn_track_finding_tpu_torch.evaluation import efficiency
+    from gnn_track_finding_tpu_torch.graph.build import build_event
+    from gnn_track_finding_tpu_torch.graph.state import as_numpy
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import cluster_kernel, distinct_kernel
+    cpu = torch.device("cpu")
+    f64 = torch.float64
+    print(f"card: {card}")
+    launches = {}
+
+    def study(name, fn):
+        """fn(device) on the card (its launches counted) and on CPU tensors;
+        -> (card result, CPU result)."""
+        cluster_kernel.cluster_core.launches = 0
+        distinct_kernel.distinct_counts.launches = 0
+        got, t_card = sync_time(lambda: fn(cuda))
+        launches[name] = {
+            "gmr_cluster": cluster_kernel.cluster_core.launches,
+            "distinct_counts": distinct_kernel.distinct_counts.launches}
+        ref, t_cpu = sync_time(lambda: fn(cpu))
+        print(f"{name}: {t_card:.3f} s on the card, {t_cpu:.3f} s on CPU "
+              f"tensors; kernel launches {launches[name]}")
+        return got, ref
+
+    def max_rel(a, b):
+        """Largest relative gap over the finite nonzero entries of b."""
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        nz = np.isfinite(b) & (b != 0)
+        return float(np.max(np.abs(a - b)[nz] / np.abs(b[nz]))) if nz.any() else 0.0
+
+    def same(a, b, rtol):
+        return a.shape == b.shape and np.allclose(a, b, rtol=rtol, atol=0,
+                                                  equal_nan=True)
+
+    t_phase = time.perf_counter()
+    # -- shared-hit dendrograms over 10 toy runs: clustering kernel in
+    # stage 1, distinct counts in stage 2's reweight
+    got, ref = study("dendrogram_statistics", lambda d: (
+        shared_hits.dendrogram_statistics(num_runs=10, seed=0, device=d)))
+    for key in ("iteration1", "iteration2"):
+        print(f"  {key}: {got[key].size} maxima (CPU {ref[key].size}), card vs "
+              f"CPU max relative gap {max_rel(got[key], ref[key]):.3e}")
+        check(same(got[key], ref[key], 1e-9),
+              f"dendrogram_statistics {key} differs between card and CPU")
+    check(got["iteration1"].size > 0, "dendrogram_statistics: no maxima")
+    check(all(v > 0 for v in launches["dendrogram_statistics"].values()),
+          "dendrogram_statistics launched a kernel no time")
+
+    # -- per-node dendrogram maxima on the full event after iteration 1's
+    # clustering (seed weights) and iteration 2's extrapolation (updated
+    # weights); the event's node truth agrees across few hit pairs, so the
+    # maxima are also taken over every active in-edge (one label for all).
+    # An in-edge with dx = 0 has an infinite gradient (the JAX module's
+    # tiny divisor overflows), and its node's maxima are not finite
+    def full_states(device):
+        g, cfg = graph(FULL, f64, device=device)
+        g1 = pipeline.stage_step(pipeline.prepare(g, cfg), cfg, 1)
+        g2 = pipeline.stage_step(pipeline.extract_step(g1, cfg, 1)[0], cfg, 2)
+        return g1, g2
+
+    card_states, cpu_states = study("full-event stages 1-2", full_states)
+    alike = np.zeros(card_states[0].num_padded_nodes, np.int64)
+    for (gc, gr), upd in zip(zip(card_states, cpu_states), (False, True)):
+        for label, truth in (("node truth", as_numpy(gc.truth)),
+                             ("every in-edge", alike)):
+            with np.errstate(over="ignore", invalid="ignore"):
+                m_card, t_card = sync_time(
+                    lambda: shared_hits.node_dendrogram_maxima(gc, truth, upd))
+                m_cpu = shared_hits.node_dendrogram_maxima(gr, truth, upd)
+            print(f"  node_dendrogram_maxima, full event, "
+                  f"{'updated' if upd else 'seed'} weights, {label}: "
+                  f"{m_card.size} maxima ({int((~np.isfinite(m_card)).sum())} "
+                  f"not finite) in {t_card:.3f} s; card vs CPU max relative "
+                  f"gap {max_rel(m_card, m_cpu):.3e}")
+            check(same(m_card, m_cpu, 1e-9),
+                  "node_dendrogram_maxima differ between card and CPU")
+        check(m_card.size > 0, "node_dendrogram_maxima: no maxima")
+    full_staged = card_states[0]
+    del card_states, cpu_states
+
+    # -- the LUT-effect study: the clustering kernel under per-node LUT
+    # thresholds
+    got, ref = study("lut_effect_study", lambda d: plots.lut_effect_study(
+        num_events=10, seed=100, train_events=30, device=d))
+    print(f"  rates {got}")
+    check(got == ref, "lut_effect_study differs between card and CPU")
+    check(launches["lut_effect_study"]["gmr_cluster"] > 0,
+          "lut_effect_study launched the clustering kernel no time")
+
+    # -- parabolic vs linear training rows
+    got, ref = study("parabolic_vs_linear", lambda d: (
+        plots.parabolic_vs_linear(num_events=20, seed=0, device=d)))
+    print(f"  {got}")
+    for model in ("parabolic", "linear"):
+        check(got[model]["n"] == ref[model]["n"] and all(
+            np.isclose(got[model][k], ref[model][k], rtol=1e-9, atol=0)
+            for k in ("true_kl_median", "false_kl_median", "separation")),
+            f"parabolic_vs_linear {model} differs between card and CPU")
+
+    # -- Leiden communities of volume 7 (after iteration 1's clustering and
+    # the final state) and of the full event (the same two states)
+    xyzr, vivl, tp, pairs, extra, pre = events[VOL7]
+
+    def volume7(device):
+        cfg = PipelineConfig(min_volume=7, max_volume=7)
+        g, host = build_event(xyzr, vivl, tp, pairs, cfg, device=device,
+                              mirror=pre["mirror"], component=pre["component"],
+                              node_ids=extra["node_ids"], with_tracker=False,
+                              hit_particle_ids=event_cache.hit_particle_ids(
+                                  extra))
+        staged = pipeline.stage_step(pipeline.prepare(g, cfg), cfg, 1)
+        return cfg, host, staged, pipeline.run_pipeline_fast(g, cfg)
+
+    (cfg7, host7, staged, out7), (_, _, staged_cpu, out7_cpu) = study(
+        "volume-7 run", volume7)
+    for label, gc, gr in (("after iteration 1's clustering", staged,
+                           staged_cpu),
+                          ("final", out7.graph, out7_cpu.graph)):
+        coms, t_card = sync_time(lambda: community.detect_communities(gc, cfg7))
+        coms_cpu = community.detect_communities(gr, cfg7)
+        print(f"  detect_communities(leiden), volume 7 {label}: {len(coms)} "
+              f"communities in {t_card:.3f} s, equal to CPU tensors': "
+              f"{coms == coms_cpu}")
+        check(coms == coms_cpu, f"volume-7 communities ({label}) differ "
+              "between card and CPU")
+    g, cfg = graph(FULL, f64)
+    vivl_full = as_numpy(g.vivl)
+    for label, state in (("after iteration 1's clustering", full_staged),
+                         ("final", pipeline.run_pipeline_fast(g, cfg).graph)):
+        coms, t_full = sync_time(
+            lambda: community.detect_communities(state, cfg))
+        for c in coms:
+            layers = [(int(vivl_full[n, 0]), int(vivl_full[n, 1])) for n in c]
+            check(len(c) >= cfg.min_track_hits
+                  and len(layers) == len(set(layers)),
+                  "a full-event community fails the fragment or layer filter")
+        print(f"  detect_communities(leiden), full event {label}: "
+              f"{len(coms)} communities in {t_full:.3f} s, every one past "
+              "both filters")
+    del full_staged
+
+    # -- pvals.csv and the purity CSVs of the volume-7 run, read back
+    out_dir = REPO / "build" / "smoke_studies"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    distributions.save_pvals_csv(out7.candidates, str(out_dir / "pvals.csv"))
+    with open(out_dir / "pvals.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    check(rows[0] == ["", "pvals_xy", "pvals_zr"]
+          and [r[0] for r in rows[1:]] == [str(i) for i in
+                                           range(len(out7.candidates))]
+          and [(float(r[1]), float(r[2])) for r in rows[1:]]
+          == [(c.pval_xy, c.pval_zr) for c in out7.candidates],
+          "pvals.csv does not read back as the candidates' p-values")
+    # the TrackML efficiency report of the run, through the event's CSV
+    # files and a particles file that puts every particle above the pT cut
+    # (the cache's truth mapping matches few of the graph's edges: few or
+    # no candidates are reconstructed)
+    paths = trackml.write_csvs(out_dir / "csv", xyzr, vivl, pairs, extra)
+    pids = sorted(set(np.asarray(extra["pid_flat"]).tolist()) - {0})
+    particles = out_dir / "csv" / "particles.csv"
+    particles.write_text("particle_id,px,py,pz\n" + "".join(
+        f"{p},10.0,0.0,0.0\n" for p in pids))
+    rep = efficiency.evaluate([c.nodes for c in out7.candidates], host7,
+                              str(particles), paths.truth_csv, cfg7)
+    distributions.save_purity_csvs(rep, str(out_dir))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # an empty file warns
+        back = [np.loadtxt(out_dir / f"extracted_{k}_purities.csv",
+                           delimiter=",", ndmin=1)
+                for k in ("track", "particle")]
+    check(np.array_equal(back[0], rep.track_purities)
+          and np.array_equal(back[1], rep.particle_purities),
+          "purity CSVs do not read back as the report's purities")
+    print(f"  volume-7 artifacts: pvals.csv ({len(out7.candidates)} rows) and "
+          f"the purity CSVs ({len(rep.track_purities)} reconstructed of "
+          f"{rep.num_reference}) read back bitwise")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     phase("1. device")
     if not torch.cuda.is_available():
         print("chip_smoke needs a CUDA device; torch.cuda.is_available() is "
@@ -730,14 +955,17 @@ def main() -> int:
 
     events = {}
 
-    def graph(path, dtype, device=cuda):
+    def graph(path, dtype, device=cuda, **cfg_changes):
+        """The event's state and config; clean mode (bug_compat=False)
+        ingests with the identity mirror."""
         if path not in events:
             events[path] = load_npz(path)
         xyzr, vivl, tp, pairs, extra, pre = events[path]
         cfg = PipelineConfig(min_volume=int(vivl[:, 0].min()),
-                             max_volume=int(vivl[:, 0].max()))
+                             max_volume=int(vivl[:, 0].max()), **cfg_changes)
         g = build_graph_state(xyzr, vivl, tp, pairs, cfg, device=device,
-                              dtype=dtype, mirror=pre["mirror"],
+                              dtype=dtype,
+                              mirror=pre["mirror"] if cfg.bug_compat else None,
                               component=pre["component"])
         return g, cfg
 
@@ -776,6 +1004,20 @@ def main() -> int:
         x_upd = clustering.core_inputs(g, cfg, True)
         round_case(f"updated round {name}", x_upd, cfg, dtype)
         cluster_inputs[dtype] = (x, x_upd, cfg)
+    # clean mode (bug_compat=False): the full KL trace and the z endcap
+    # coordinate, in both rounds of the full event
+    g, cfg = graph(FULL, torch.float64, bug_compat=False)
+    check(torch.equal(g.mirror, torch.arange(g.num_padded_edges,
+                                             device=cuda)),
+          "clean ingest: the mirror is not the identity")
+    g = pipeline.prepare(g, cfg)
+    x = clustering.core_inputs(g, cfg, False)
+    round_case("clean mode seed round float64", x, cfg, torch.float64)
+    for i in (1, 2):
+        g, _ = pipeline.iteration(g, cfg, i)
+    x_upd = clustering.core_inputs(g, cfg, True)
+    round_case("clean mode updated round float64", x_upd, cfg, torch.float64)
+    cluster_inputs["clean"] = (x, x_upd, cfg)
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[1]
         for kc in (4, 16, 32):
@@ -842,6 +1084,18 @@ def main() -> int:
     print(f"kernel launches in the full-event run: {launches}")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched")
     solo = out
+
+    g, cfg = graph(VOL7, torch.float64, bug_compat=False)
+    cluster_kernel.cluster_core.launches = 0
+    distinct_kernel.distinct_counts.launches = 0
+    per_it = counts(pipeline.run_pipeline_fast(g, cfg), cfg)
+    clean_launches = {
+        "gmr_cluster": cluster_kernel.cluster_core.launches,
+        "distinct_counts": distinct_kernel.distinct_counts.launches}
+    print(f"{VOL7.name} clean mode (bug_compat=False) float64: accepted "
+          f"{per_it} (JAX package {EXPECTED_CLEAN_F64}); kernel launches "
+          f"{clean_launches}")
+    check(per_it == EXPECTED_CLEAN_F64, "clean volume-7 counts")
 
     g32, cfg = graph(FULL, torch.float32)
     out32 = pipeline.run_pipeline_fast(g32, cfg)
@@ -911,6 +1165,22 @@ def main() -> int:
               f"{times[f'{key} warm L2']:.4f} ms (warm), per call "
               f"{times[f'{key} per call']:.4f} ms, plain "
               f"{times[f'{key} plain']:.4f} ms, bound {bounds[key]}")
+    x_seed, x_upd, cfg = cluster_inputs["clean"]
+    for rnd, x in (("seed", x_seed), ("updated", x_upd)):
+        inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
+        key = f"gmr_cluster {rnd} clean float64"
+        run = lambda: cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr,
+                                                  cfg=cfg)
+        times[key] = device_ms(run, flush=flush)
+        times[f"{key} warm L2"] = device_ms(run)
+        times[f"{key} plain"] = call_ms(
+            lambda: cluster_kernel.cluster_core_plain(
+                *inputs, chi2_thr=x.chi2_thr, cfg=cfg), reps=5)
+        bounds[key] = cluster_bound(x, run(), cfg)
+        print(f"{key} (bug_compat=False), {tuple(x.tab.shape)}: kernel device "
+              f"time {times[key]:.4f} ms (L2 flushed), "
+              f"{times[f'{key} warm L2']:.4f} ms (warm), plain "
+              f"{times[f'{key} plain']:.4f} ms; bound {bounds[key]}")
     del flush
     for rnd in ("seed", "updated"):
         g, cfg = graph(FULL, torch.float64)
@@ -1101,6 +1371,10 @@ def main() -> int:
     phase("9. the edge-partitioned schedule (float64)")
     owner, sharded_launches = sharded_phase(card, cuda, graph)
 
+    phase("10. analysis and calibration studies (float64)")
+    study_launches = studies_phase(card, cuda, graph, events)
+    studies = lambda name: {k: v[name] for k, v in study_launches.items()}
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
@@ -1120,6 +1394,14 @@ def main() -> int:
              "plain_ms": times["gmr_cluster updated float64 plain"],
              **bounds["gmr_cluster updated float64"]},
          "lut_thresholds": lut_record,
+         "clean_mode": {rnd: {
+             "ms": times[f"gmr_cluster {rnd} clean float64"],
+             "ms_warm_l2": times[f"gmr_cluster {rnd} clean float64 warm L2"],
+             "plain_ms": times[f"gmr_cluster {rnd} clean float64 plain"],
+             **bounds[f"gmr_cluster {rnd} clean float64"]}
+             for rnd in ("seed", "updated")},
+         "launches_clean_volume7": clean_launches["gmr_cluster"],
+         "launches_studies": studies("gmr_cluster"),
          "launches_sharded": sharded_launches["gmr_cluster"],
          "owner_rows": {rnd: owner[f"gmr_cluster {rnd}"]
                         for rnd in ("seed", "updated")},
@@ -1141,13 +1423,16 @@ def main() -> int:
          "library_ms": None,
          "shape": "full event reweight tables (57,344 x 64), float64",
          "launches_sharded": sharded_launches["distinct_counts"],
+         "launches_clean_volume7": clean_launches["distinct_counts"],
+         "launches_studies": studies("distinct_counts"),
          "owner_rows": owner["distinct_counts"],
          "times": {k: v for k, v in times.items()
                    if k.startswith("distinct_counts")},
          "occupancy": {k: v for k, v in occupancy.items()
                        if k.startswith("distinct_counts")}},
     ]
-    print()
+    print(f"\nchip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

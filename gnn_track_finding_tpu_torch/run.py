@@ -13,7 +13,10 @@ LUT (quantile rule on emp_var) on 20 toy events (seed 0) and hands the
 event's per-node thresholds to `run_pipeline`.  --particles with --csv
 adds the TrackML efficiency report.  --stream N streams N copies of the
 event through the prefetch loader and `stream_pipeline` (ingest
-included) and reports events/s.
+included) and reports events/s.  --json prints one JSON summary line
+last: nodes, edges, candidates and pipeline_seconds, with pure (--toy) or
+the efficiency keys (--particles); with --stream, events, events_per_s
+and candidates of the stream.
 
 Usage:
   python -m gnn_track_finding_tpu_torch.run --event .event_cache/<key>.npz
@@ -23,12 +26,14 @@ Usage:
   python -m gnn_track_finding_tpu_torch.run --csv NODES EDGES TRUTH --particles PARTICLES
   python -m gnn_track_finding_tpu_torch.run --event <npz> --fast --f32
   python -m gnn_track_finding_tpu_torch.run --event <npz> --stream 10
+  python -m gnn_track_finding_tpu_torch.run --toy --json
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 
@@ -60,6 +65,8 @@ def main(argv=None) -> int:
                         help="float32 compute (default float64, the parity mode)")
     parser.add_argument("--stream", type=int, default=0, metavar="N",
                         help="stream N copies of the event and report events/s")
+    parser.add_argument("--json", action="store_true",
+                        help="print one JSON summary line last")
     args = parser.parse_args(argv)
     if args.particles and not args.csv:
         parser.error("--particles needs --csv")
@@ -154,6 +161,8 @@ def main(argv=None) -> int:
     print(f"[pipeline] {driver}: {len(out.candidates)} candidates {per_it} "
           f"in {t_pipe:.3f}s (first call, kernel build included); FastSV "
           f"rounds {out.cca_rounds}")
+    summary = {"nodes": g.n_nodes, "edges": g.n_edges,
+               "candidates": len(out.candidates), "pipeline_seconds": t_pipe}
 
     if args.toy:
         lists = [c.nodes for c in out.candidates]
@@ -163,6 +172,7 @@ def main(argv=None) -> int:
               f"{rep.num_reconstructed}, efficiency: "
               f"{rep.efficiency_pct:.3f}%; pure candidates: "
               f"{pure}/{len(out.candidates)}")
+        summary["pure"] = pure
     elif args.particles:
         rep = efficiency.evaluate([c.nodes for c in out.candidates], host,
                                   args.particles, args.csv[2], cfg)
@@ -172,6 +182,9 @@ def main(argv=None) -> int:
         if len(rep.track_purities):
             print(f"[eval] mean track purity {rep.track_purities.mean():.3f}, "
                   f"mean particle purity {rep.particle_purities.mean():.3f}")
+        summary.update(efficiency_pct=rep.efficiency_pct,
+                       num_reference=rep.num_reference,
+                       num_reconstructed=rep.num_reconstructed)
 
     if args.stream:
         loader = prefetch.prefetch(
@@ -182,6 +195,10 @@ def main(argv=None) -> int:
         dt = time.perf_counter() - t0
         print(f"[stream] {args.stream} events in {dt:.2f}s = "
               f"{args.stream / dt:.2f} events/s ({n_cand} candidates)")
+        summary = {"events": args.stream, "events_per_s": args.stream / dt,
+                   "candidates": n_cand}
+    if args.json:
+        print(json.dumps(summary))
     return 0
 
 

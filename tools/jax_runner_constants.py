@@ -11,9 +11,12 @@ to (the card's machine has no JAX).
     bins, bin widths);
   * calibrated: run_pipeline with that LUT's per-node thresholds and the
     tracker on each committed event cache (volume 7 and the full event):
-    accepted candidates per iteration and the threshold levels.
+    accepted candidates per iteration and the threshold levels;
+  * clean_volume7: run_pipeline_fast in clean mode (bug_compat=False, the
+    identity mirror) on the volume-7 cache: accepted candidates per
+    iteration (chip_smoke phase 3 and tests/test_torch_modes.py).
 
-Usage (about 2 minutes and 3.5 GB, most of it the full event's quadratic
+Usage (about 3 minutes and 3.5 GB, most of it the full event's quadratic
 leak replay in the JAX module):
 
     JAX_PLATFORMS=cpu python tools/jax_runner_constants.py
@@ -104,6 +107,15 @@ def main() -> None:
             "threshold_levels": dict(zip(map(float, levels),
                                          map(int, counts)))}
         print(name, out["calibrated"][name], file=sys.stderr, flush=True)
+
+    xyzr, vivl, tp, pairs, extra, pre = event_cache.load(
+        str(REPO / ".event_cache"), CACHE_KEYS["volume7"])
+    cfg = PipelineConfig(bug_compat=False)
+    g, _ = build_graph_state(xyzr, vivl, tp, pairs, cfg, host_extra=extra,
+                             precomputed={"component": pre["component"]},
+                             with_tracker=False)
+    out["clean_volume7"] = per_iteration(pipeline.run_pipeline_fast(g, cfg),
+                                         cfg)
     print(json.dumps(out, indent=1))
 
 
