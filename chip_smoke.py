@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
 Drives the port's production driver (`run_pipeline_fast`, `stream_pipeline`)
-on the committed TrackML event caches and checks both hand-written CUDA
-kernels against their plain PyTorch versions on the card:
+on the committed TrackML event caches, captured as one CUDA graph per pad
+bucket, and checks both hand-written CUDA kernels against their plain
+PyTorch versions on the card:
 
   1. device: a CUDA device is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -18,11 +19,12 @@ kernels against their plain PyTorch versions on the card:
   4. distinct-count kernel vs plain, exact, on the real reweight tables
      (K = 64), a duplicate-rich table and the edge cases of
      testing.distinct_tables (K = 32, 40, 64, 128), at both dtypes;
-  5. the slice: float64 accepted counts per iteration on the volume-7 and
-     full events against the reference's, the float32 counts beside the
-     plain path's (the same schedule on CPU tensors), the kernels' launch
-     counts in the main-path run, a 3-event stream against the solo run,
-     and the clean-mode volume-7 counts against the JAX package's;
+  5. the slice, eager: float64 accepted counts per iteration on the
+     volume-7 and full events against the reference's, the float32 counts
+     beside the plain path's (the same schedule on CPU tensors), the
+     kernels' launch counts in the main-path run, a 3-event stream (the
+     captured program) against the solo run, and the clean-mode volume-7
+     counts against the JAX package's;
   6. steady-state times: each kernel (device time with the L2 cache
      flushed before each call, and warm) and its plain version at the
      full-event shapes (both clustering rounds), the packed gather the
@@ -81,6 +83,27 @@ kernels against their plain PyTorch versions on the card:
      plot_decision_boundary and the Louvain branch need matplotlib,
      sklearn or networkx, which the card's machine lacks: they run only in
      the CPU tests (tests/test_torch_studies.py).
+
+The production drivers replay one captured CUDA graph per pad bucket;
+phases 5 and 6 hold the eager schedule (`run_pipeline_eager`, the same
+program run op by op), so their rows stay comparable with earlier runs:
+ 11. the captured schedule (models/pipeline.CapturedSchedule): volume 7
+     and the full event at float64 and clean volume 7 through
+     run_pipeline_fast against the reference's and the JAX package's
+     counts, the captured results (first call and a replay) bitwise the
+     eager ones at float64 and float32 (candidates, p-values, FastSV
+     rounds, every field of the final state); capture and instantiate
+     seconds and the graph pool per program, the kernels' launches in the
+     capture (each replay makes them; the counters see only the warm-up
+     and the capture); the per-event wall, captured and eager in turn,
+     best of 5, with one replay's device time and the cost of copying an
+     event in and cloning the final state out; the device-busy share of
+     one event under torch.profiler, captured and eager; a replay under
+     torch.cuda.set_sync_debug_mode("error"); streamed events/s over 8
+     copies of the full event ingested through data/prefetch.prefetch
+     (the first stream captures while the prefetch thread works); and no
+     event falls back to the host driver.  Its record is printed as one
+     JSON line.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -248,7 +271,8 @@ def cluster_bound(x, out, cfg) -> dict:
     from gnn_track_finding_tpu_torch.ops import cluster_kernel
     dtype = x.node_xyzr.dtype
     w = x.node_xyzr.element_size()
-    rows, kc = x.tab.shape
+    kc = x.tab.shape[1]
+    rows = int(x.count)            # the live rows; the rest hold no member
     n = cluster_kernel.member_mask(x.tab).sum(1).double()
     found = out[0]
     merged = torch.where(found, n - out[4].sum(1), 0).double()
@@ -281,7 +305,8 @@ def distinct_bound(ok, x) -> dict:
 
 def core_case(label, inputs, cfg, dtype, chi2_thr, check_found=True):
     """The kernel against the plain version: bitwise at float64, the
-    flag band at float32.  Returns the largest |diff|."""
+    flag band at float32, over every row (those past a live count in
+    inputs[4] come out not found from both).  Returns the largest |diff|."""
     from gnn_track_finding_tpu_torch.ops import cluster_kernel
     want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=chi2_thr,
                                              cfg=cfg)
@@ -289,12 +314,13 @@ def core_case(label, inputs, cfg, dtype, chi2_thr, check_found=True):
     torch.cuda.synchronize()
     f_k, f_p = got[0], want[0]
     rows, kc = inputs[1].shape
+    live = int(inputs[4]) if len(inputs) > 4 else rows
     flips = int((f_k != f_p).sum())
     both = f_k & f_p
     diff = max(float((a[both] - b[both]).abs().nan_to_num().max())
                if both.any() else 0.0
                for a, b in zip(got[1:4], want[1:4]))
-    print(f"{label}: {rows} rows x kc={kc}, found {int(f_k.sum())} "
+    print(f"{label}: {live} live rows of {rows} x kc={kc}, found {int(f_k.sum())} "
           f"(plain {int(f_p.sum())}), flag flips {flips}, deact diffs "
           f"{int((got[4] != want[4]).sum())}, max |diff| of merged "
           f"values {diff:.3e}")
@@ -449,8 +475,9 @@ def calibration_phase(card, cuda, graph, counts, events):
                                                    thr)),
                    ("updated", clustering.core_inputs(g2, cfg_full, True,
                                                       thr))):
-        inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
-        lv, n_lv = torch.unique(x.klthr, return_counts=True)
+        inputs = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
+        live = int(x.count)
+        lv, n_lv = torch.unique(x.klthr[:live], return_counts=True)
         rows_per = dict(zip(lv.tolist(), n_lv.tolist()))
         core_case(f"{rnd} round float64 under the LUT thresholds", inputs,
                   cfg_full, f64, x.chi2_thr)
@@ -459,14 +486,15 @@ def calibration_phase(card, cuda, graph, counts, events):
             return cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr,
                                                cfg=cfg_full)
 
-        rec = {"rows": int(x.tab.shape[0]), "rows_per_threshold": rows_per,
+        rec = {"rows": live, "rows_per_threshold": rows_per,
                "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
                "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
                    *inputs, chi2_thr=x.chi2_thr, cfg=cfg_full), reps=5),
                **cluster_bound(x, run(), cfg_full)}
         lut_record[rnd] = rec
         print(f"gmr_cluster {rnd} round under the LUT thresholds, "
-              f"{tuple(x.tab.shape)}, rows per threshold {rows_per}: kernel "
+              f"{live} live rows of {tuple(x.tab.shape)}, rows per threshold "
+              f"{rows_per}: kernel "
               f"device time {rec['ms']:.4f} ms (L2 flushed), "
               f"{rec['ms_warm_l2']:.4f} ms (warm), plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
@@ -669,7 +697,8 @@ def sharded_phase(card, cuda, graph):
             ids=None, tab=put(a["tab"]),
             states=cluster_kernel.unpack_states(put(a["packed"])),
             node_xyzr=put(a["node_xyzr"]), klthr=put(a["klthr"]),
-            chi2_thr=a["chi2_thr"], member_slot=None)
+            chi2_thr=a["chi2_thr"], member_slot=None,
+            count=torch.full((), a["tab"].shape[0], device=cuda))
         args = (x.states, x.tab, x.node_xyzr, x.klthr)
         core_case(f"owner rows (rank 0 of 2), {rnd} round float64", args,
                   cfg, f64, x.chi2_thr, check_found=x.tab.shape[0] > 0)
@@ -903,6 +932,227 @@ def studies_phase(card, cuda, graph, events):
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+def bitwise_diff(a, b) -> list:
+    """What differs bit for bit between two PipelineResults: candidates
+    (nodes and p-values), FastSV rounds, and each field of the final
+    state (floats compared as their bits, so NaN and -0.0 count)."""
+    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
+    bad = []
+    if not (len(a.candidates) == len(b.candidates) and all(
+            x.iteration == y.iteration and np.array_equal(x.nodes, y.nodes)
+            and np.float64(x.pval_xy).tobytes() == np.float64(y.pval_xy).tobytes()
+            and np.float64(x.pval_zr).tobytes() == np.float64(y.pval_zr).tobytes()
+            for x, y in zip(a.candidates, b.candidates))):
+        bad.append("candidates")
+    if a.cca_rounds != b.cca_rounds:
+        bad.append("cca_rounds")
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    for name in tensor_fields():
+        x, y = getattr(a.graph, name), getattr(b.graph, name)
+        if x.dtype in bits:
+            x, y = x.view(bits[x.dtype]), y.view(bits[y.dtype])
+        if x.shape != y.shape or not torch.equal(x, y):
+            bad.append(name)
+    return bad
+
+
+def busy_share(fn):
+    """fn() once under torch.profiler -> (the union of the device's
+    intervals over the call's wall, or None when the trace holds no device
+    activity; the wall in s; the device events' count and their time by
+    name, longest first)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None, wall, 0, []
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) * 1e-3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (busy * 1e-6 / wall, wall, len(device),
+            sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def captured_phase(card, cuda, graph, counts):
+    """Phase 11: run_pipeline_fast / stream_pipeline through the captured
+    CUDA graph of each pad bucket.  Returns the record of the phase (the
+    kernels' launches per replay among it)."""
+    from gnn_track_finding_tpu_torch.data import prefetch
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import cluster_kernel, distinct_kernel
+    f64, f32 = torch.float64, torch.float32
+    print(f"card: {card}")
+    t_phase = time.perf_counter()
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    fallbacks = pipeline.fallbacks
+
+    def launches():
+        return {"gmr_cluster": cluster_kernel.cluster_core.launches,
+                "distinct_counts": distinct_kernel.distinct_counts.launches}
+
+    record = {"programs": {}}
+    cases = (("volume 7 float64", VOL7, f64, {}, EXPECTED_F64[VOL7]),
+             ("full event float64", FULL, f64, {}, EXPECTED_F64[FULL]),
+             ("clean volume 7 float64", VOL7, f64, {"bug_compat": False},
+              EXPECTED_CLEAN_F64),
+             ("full event float32", FULL, f32, {}, None))
+    for label, path, dtype, changes, want in cases:
+        g, cfg = graph(path, dtype, **changes)
+        cluster_kernel.cluster_core.launches = 0
+        distinct_kernel.distinct_counts.launches = 0
+        out, t_first = sync_time(lambda: pipeline.run_pipeline_fast(g, cfg))
+        first = launches()
+        prog = pipeline.captured_program(g, cfg)
+        replayed = pipeline.run_pipeline_fast(g, cfg)
+        check(launches() == first, f"{label}: a replay counted launches")
+        eager = pipeline.run_pipeline_eager(g, cfg)
+        bad = bitwise_diff(out, eager) + bitwise_diff(replayed, eager)
+        per_it = counts(out, cfg)
+        rec = {"accepted": per_it, "capture_s": prog.capture_seconds,
+               "instantiate_s": prog.instantiate_seconds,
+               "first_call_s": t_first, "pool_gib": prog.pool_bytes / 2**30,
+               "launches_per_replay": prog.launches,
+               "launches_first_call": first, "fastsv_rounds": out.cca_rounds}
+        record["programs"][label] = rec
+        print(f"{label}, captured: accepted {per_it}"
+              + (f" (expected {want})" if want else "")
+              + f", FastSV rounds {out.cca_rounds}; first call {t_first:.3f} s "
+              f"(eager warm-up, capture {prog.capture_seconds:.3f} s, end of "
+              f"capture + instantiate {prog.instantiate_seconds:.3f} s); "
+              f"graph pool {rec['pool_gib']:.3f} GiB; kernel launches in the "
+              f"first call {first} (warm-up + capture), per replay "
+              f"{prog.launches}; captured vs eager, first call and a replay, "
+              f"bitwise: {not bad} {bad}")
+        check(all(v > 0 for v in first.values()), f"{label}: a kernel was not "
+              "launched in the captured run")
+        check(all(v > 0 for v in prog.launches.values()),
+              f"{label}: a kernel is not in the captured graph")
+        check(not bad, f"{label}: captured result differs from the eager one "
+              f"in {bad}")
+        if want is not None:
+            check(per_it == want, f"{label}: counts")
+
+    # per-event wall, captured against eager in turn, best of 5
+    for dtype in (f64, f32):
+        name = str(dtype).split(".")[1]
+        g, cfg = graph(FULL, dtype)
+        prog = pipeline.captured_program(g, cfg)
+        walls = {"captured": [], "eager": []}
+        for _ in range(5):
+            for kind, fn in (("captured", pipeline.run_pipeline_fast),
+                             ("eager", pipeline.run_pipeline_eager)):
+                walls[kind].append(sync_time(lambda: fn(g, cfg))[1])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        replay = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start.record()
+            prog.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            replay.append(start.elapsed_time(end))
+
+        def copy_in():
+            for key, t in prog.inputs.items():
+                t.copy_(getattr(g, key))
+
+        parts = {"replay_ms": min(replay), "copy_in_ms": call_ms(copy_in),
+                 "clone_out_ms": call_ms(lambda: pipeline.clone_state(prog.out))}
+        best = {k: min(v) for k, v in walls.items()}
+        record[f"wall_{name}"] = {"best_s": best, "walls_s": walls, **parts}
+        print(f"full event {name} per-event wall, best of 5: captured "
+              f"{best['captured']:.4f} s, eager {best['eager']:.4f} s "
+              f"(captured {[round(w, 4) for w in walls['captured']]}, eager "
+              f"{[round(w, 4) for w in walls['eager']]}); one replay "
+              f"{parts['replay_ms']:.3f} ms (CUDA events), inputs copied in "
+              f"{parts['copy_in_ms']:.3f} ms, final state cloned out "
+              f"{parts['clone_out_ms']:.3f} ms")
+
+    # the device's busy share of one event (kernel intervals under
+    # torch.profiler over the call's wall)
+    g, cfg = graph(FULL, f64)
+    shares = {kind: busy_share(lambda: fn(g, cfg))
+              for kind, fn in (("captured", pipeline.run_pipeline_fast),
+                               ("eager", pipeline.run_pipeline_eager))}
+    record["busy_share"] = {k: v[0] for k, v in shares.items()}
+    print("device busy share of one full event float64 (profiled wall): "
+          + ", ".join(f"{k} " + (f"{v[0]:.3f}" if v[0] is not None else
+                                 "not measured (no device events)")
+                      + f" of {v[1]:.4f} s in {v[2]} device events"
+                      for k, v in shares.items()))
+    top = shares["captured"][3][:10]
+    record["captured_device_ms_by_name"] = dict(top)
+    print("  captured event, device time by kernel name (ms, the ten "
+          "longest): " + "; ".join(f"{n[:70]} {t:.2f}" for n, t in top))
+
+    # the replay and its enqueued readback under the sync debug mode
+    prog = pipeline.captured_program(g, cfg)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = prog.launch(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(not bitwise_diff(pending.result(), pipeline.run_pipeline_eager(g, cfg)),
+          "the replay under the sync debug mode differs")
+    print("replay, state clone and readback copy enqueued under "
+          "torch.cuda.set_sync_debug_mode('error'): no synchronising call")
+
+    # streamed events/s: 8 copies of the full event ingested by the
+    # prefetch thread while the device works, against the eager schedule
+    # one event after another (ingest included in both)
+    # (the first run captures the program while the prefetch thread
+    # ingests the next events on the card: capture_error_mode thread_local)
+    n_ev = 8
+    ref = pipeline.run_pipeline_eager(g, cfg)
+    pipeline.clear_programs()
+    for run, depth in (("capture included, depth 1", 1), ("depth 1", 1),
+                       ("depth 2", 2)):
+        loader = prefetch.prefetch([lambda: graph(FULL, f64)[0]] * n_ev)
+        t0 = time.perf_counter()
+        outs = list(pipeline.stream_pipeline(loader, cfg, depth=depth))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(len(outs) == n_ev and all(not bitwise_diff(o, ref) for o in outs),
+              "a streamed event differs from the eager run")
+        record[f"stream_events_per_s {run}"] = n_ev / dt
+        print(f"stream_pipeline, {n_ev} full events float64 through "
+              f"data/prefetch.prefetch, {run}: {dt:.3f} s = "
+              f"{n_ev / dt:.3f} events/s, each bitwise the eager run")
+    t0 = time.perf_counter()
+    for _ in range(n_ev // 2):
+        pipeline.run_pipeline_eager(graph(FULL, f64)[0], cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    record["eager_sequential_events_per_s"] = (n_ev // 2) / dt
+    print(f"eager, {n_ev // 2} full events one after another (ingest "
+          f"included): {(n_ev // 2) / dt:.3f} events/s")
+
+    record["fallbacks"] = pipeline.fallbacks - fallbacks
+    check(record["fallbacks"] == 0, "an event fell back to the host driver")
+    record["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    print(f"fallbacks {record['fallbacks']}; device memory reserved with the "
+          f"phase's programs cached {record['reserved_gib']:.2f} GiB; phase "
+          f"11: {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"captured_schedule": record}))
+    return record
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -978,7 +1228,8 @@ def main() -> int:
     phase("3. GMR clustering kernel vs plain (full event, edge cases)")
 
     def round_case(label, x, cfg, dtype):
-        return core_case(label, (x.states, x.tab, x.node_xyzr, x.klthr), cfg,
+        return core_case(label, (x.states, x.tab, x.node_xyzr, x.klthr,
+                                 x.count), cfg,
                          dtype, x.chi2_thr)
 
     cluster_inputs = {}
@@ -1065,13 +1316,13 @@ def main() -> int:
             record["distinct_max_abs_err"] = max(
                 record["distinct_max_abs_err"], err)
 
-    phase("5. the slice: run_pipeline_fast / stream_pipeline")
+    phase("5. the slice, eager: run_pipeline_eager / stream_pipeline")
     for path in (VOL7, FULL):
         g, cfg = graph(path, torch.float64)
         if path == FULL:
             cluster_kernel.cluster_core.launches = 0
             distinct_kernel.distinct_counts.launches = 0
-        out, dt = sync_time(lambda: pipeline.run_pipeline_fast(g, cfg))
+        out, dt = sync_time(lambda: pipeline.run_pipeline_eager(g, cfg))
         if path == FULL:
             launches = {"gmr_cluster": cluster_kernel.cluster_core.launches,
                         "distinct_counts":
@@ -1088,7 +1339,7 @@ def main() -> int:
     g, cfg = graph(VOL7, torch.float64, bug_compat=False)
     cluster_kernel.cluster_core.launches = 0
     distinct_kernel.distinct_counts.launches = 0
-    per_it = counts(pipeline.run_pipeline_fast(g, cfg), cfg)
+    per_it = counts(pipeline.run_pipeline_eager(g, cfg), cfg)
     clean_launches = {
         "gmr_cluster": cluster_kernel.cluster_core.launches,
         "distinct_counts": distinct_kernel.distinct_counts.launches}
@@ -1098,7 +1349,7 @@ def main() -> int:
     check(per_it == EXPECTED_CLEAN_F64, "clean volume-7 counts")
 
     g32, cfg = graph(FULL, torch.float32)
-    out32 = pipeline.run_pipeline_fast(g32, cfg)
+    out32 = pipeline.run_pipeline_eager(g32, cfg)
     g_cpu, _ = graph(FULL, torch.float32, device=torch.device("cpu"))
     out_cpu = pipeline.run_pipeline_fast(g_cpu, cfg)
     print(f"full event float32: accepted {counts(out32, cfg)} with the "
@@ -1115,7 +1366,8 @@ def main() -> int:
     check(len(streamed) == 3 and all(same_candidates(r, solo)
                                      for r in streamed),
           "streamed candidates differ from the solo run")
-    print("stream of 3 full events: candidates identical to the solo run")
+    print("stream of 3 full events (the captured program): candidates "
+          "identical to the eager solo run")
 
     phase("6. times (steady state, after warm-up)")
     print(f"card: {card}")
@@ -1130,7 +1382,7 @@ def main() -> int:
         name = str(dtype).split(".")[1]
         x_seed, x_upd, cfg = cluster_inputs[dtype]
         for rnd, x in (("seed", x_seed), ("updated", x_upd)):
-            inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
+            inputs = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
             key = f"gmr_cluster {rnd} {name}"
             run = lambda: cluster_kernel.cluster_core(
                 *inputs, chi2_thr=x.chi2_thr, cfg=cfg)
@@ -1143,7 +1395,8 @@ def main() -> int:
             times[f"{key} packed gather"] = device_ms(
                 lambda: cluster_kernel.pack_rows(x.states, x.tab))
             bounds[key] = cluster_bound(x, run(), cfg)
-            print(f"{key}, {tuple(x.tab.shape)}: kernel device time "
+            print(f"{key}, {int(x.count)} live rows of {tuple(x.tab.shape)}: "
+                  f"kernel device time "
                   f"{times[key]:.4f} ms (L2 flushed), "
                   f"{times[f'{key} warm L2']:.4f} ms (warm), per call "
                   f"{times[f'{key} per call']:.4f} ms, plain "
@@ -1167,7 +1420,7 @@ def main() -> int:
               f"{times[f'{key} plain']:.4f} ms, bound {bounds[key]}")
     x_seed, x_upd, cfg = cluster_inputs["clean"]
     for rnd, x in (("seed", x_seed), ("updated", x_upd)):
-        inputs = (x.states, x.tab, x.node_xyzr, x.klthr)
+        inputs = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
         key = f"gmr_cluster {rnd} clean float64"
         run = lambda: cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr,
                                                   cfg=cfg)
@@ -1177,7 +1430,8 @@ def main() -> int:
             lambda: cluster_kernel.cluster_core_plain(
                 *inputs, chi2_thr=x.chi2_thr, cfg=cfg), reps=5)
         bounds[key] = cluster_bound(x, run(), cfg)
-        print(f"{key} (bug_compat=False), {tuple(x.tab.shape)}: kernel device "
+        print(f"{key} (bug_compat=False), {int(x.count)} live rows of "
+              f"{tuple(x.tab.shape)}: kernel device "
               f"time {times[key]:.4f} ms (L2 flushed), "
               f"{times[f'{key} warm L2']:.4f} ms (warm), plain "
               f"{times[f'{key} plain']:.4f} ms; bound {bounds[key]}")
@@ -1191,16 +1445,16 @@ def main() -> int:
         key = f"cluster stage {rnd} float64"
         times[key] = call_ms(
             lambda: clustering.cluster(g, cfg, rnd == "updated"), reps=10)
-        print(f"{key} (core_inputs, kernel, scatter; CUDA events, one host "
+        print(f"{key} (core_inputs, kernel, scatter; CUDA events, no host "
               f"sync inside): {times[key]:.4f} ms")
 
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[1]
         g, cfg = graph(FULL, dtype)
-        pipeline.run_pipeline_fast(g, cfg)                   # warm-up
-        walls = [sync_time(lambda: pipeline.run_pipeline_fast(g, cfg))[1]
+        pipeline.run_pipeline_eager(g, cfg)                  # warm-up
+        walls = [sync_time(lambda: pipeline.run_pipeline_eager(g, cfg))[1]
                  for _ in range(3)]
-        print(f"run_pipeline_fast full event {name}: per-event wall "
+        print(f"run_pipeline_eager full event {name}: per-event wall "
               f"{[round(w, 4) for w in walls]} s, best {min(walls):.4f} s")
 
         def stages():
@@ -1232,7 +1486,8 @@ def main() -> int:
             (graph(FULL, dtype)[0] for _ in range(n_ev)), cfg))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"stream_pipeline {n_ev} full events {name} (ingest included): "
+        print(f"stream_pipeline {n_ev} full events {name} (captured program; "
+              f"capture and ingest included): "
               f"{dt:.3f} s = {n_ev / dt:.3f} events/s, {n_cand} candidates")
 
     phase("7. the host driver: run_pipeline with the extraction-leak replay")
@@ -1375,9 +1630,15 @@ def main() -> int:
     study_launches = studies_phase(card, cuda, graph, events)
     studies = lambda name: {k: v[name] for k, v in study_launches.items()}
 
+    phase("11. the captured schedule: one CUDA graph per pad bucket")
+    captured = captured_phase(card, cuda, graph, counts)
+    per_replay = captured["programs"]["full event float64"][
+        "launches_per_replay"]
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
+         "launches_captured": per_replay["gmr_cluster"],
          "launches_run_pipeline": host_launches["gmr_cluster"],
          "launches_calibrated": calibrated_launches["gmr_cluster"],
          "max_abs_err": record["cluster_max_abs_err"],
@@ -1412,6 +1673,7 @@ def main() -> int:
         {"name": "distinct_counts", "route": "cuda", "source": DISTINCT_SOURCE,
          "replaces": DISTINCT_REPLACES,
          "launches": launches["distinct_counts"],
+         "launches_captured": per_replay["distinct_counts"],
          "launches_run_pipeline": host_launches["distinct_counts"],
          "launches_calibrated": calibrated_launches["distinct_counts"],
          "max_abs_err": record["distinct_max_abs_err"],

@@ -24,7 +24,10 @@
 // Inputs: the round's per-edge state tensors, each with its row stride in
 // elements (rows contiguous): p_sv (E, 3), p_cov (E, 3, 3), j_sv (E, 3),
 // j_cov (E, 3, 3), prior (E,), xyzr (E, 4) (a strided view in the seed
-// round); tab (rows, kc) int64 edge ids; nodex (rows, 4), klthr (rows,).
+// round); tab (rows, kc) int64 edge ids; nodex (rows, 4), klthr (rows,);
+// live, one int64 in device memory (or null: every row): the rows at or
+// past it hold no member, so the grid can cover a static row capacity
+// while the count of gated rows is known only on the device.
 // Outputs: found (rows,) u8, pm (rows, 3), pc (rows, 9), mprior (rows,),
 // deact (rows, kc) u8.  Rows not found get zero outputs.
 //
@@ -63,7 +66,7 @@
 // Mirrored field for field by cluster_kernel._Args (ctypes).
 struct ClusterArgs {
   const void *tab, *p_sv, *p_cov, *j_sv, *j_cov, *prior, *xyzr, *nodex,
-      *klthr;
+      *klthr, *live;
   void *found, *pm, *pc, *mprior, *deact;
   long long tab_stride, p_sv_stride, p_cov_stride, j_sv_stride,
       j_cov_stride, prior_stride, xyzr_stride;
@@ -185,6 +188,7 @@ template <typename T>
 struct Params {
   const int64_t* tab;
   const T *p_sv, *p_cov, *j_sv, *j_cov, *prior, *xyzr, *nodex, *klthr;
+  const int64_t* live;
   uint8_t* found;
   T *pm, *pc, *mprior;
   uint8_t* deact;
@@ -220,9 +224,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   T* pub = slots + kc * kSlotWords;                // the row record
   const int64_t* tab = p.tab + (size_t)row * p.tab_stride;
 
-  // ---- member count: the leading non-negative ids ----
+  // ---- member count: the leading non-negative ids; none past the live
+  //      rows (such a row leaves through the not-found branch) ----
   int n = kc;
-  for (int base = 0; base < kc; base += G) {
+  if (p.live && row >= *p.live) n = 0;
+  for (int base = 0; base < n; base += G) {
     const int s = base + l;
     const bool member = s < kc && tab[s] >= 0;
     const unsigned miss = (__ballot_sync(gmask, !member) & gmask) >> first;
@@ -443,6 +449,7 @@ int launch(const ClusterArgs* args, void* stream) {
   p.xyzr = (const T*)a.xyzr;
   p.nodex = (const T*)a.nodex;
   p.klthr = (const T*)a.klthr;
+  p.live = (const int64_t*)a.live;
   p.found = (uint8_t*)a.found;
   p.pm = (T*)a.pm;
   p.pc = (T*)a.pc;

@@ -117,7 +117,9 @@ def slot_table(rows: torch.Tensor, slots: torch.Tensor, vals, n_rows: int,
     """(n_rows, width, ...) table with vals written at (rows, slots), fill
     elsewhere.  Each real cell has one writer; rows == n_rows is a dump
     row (for padded or masked-out entries) that is sliced off."""
-    vals = torch.as_tensor(vals, device=rows.device)
+    if not isinstance(vals, torch.Tensor):
+        # a python scalar: made on the device (no host-to-device copy)
+        vals = torch.full((), vals, device=rows.device)
     tab = torch.full((n_rows + 1, width) + tuple(vals.shape[1:]), fill,
                      dtype=vals.dtype, device=rows.device)
     tab[rows, slots] = vals

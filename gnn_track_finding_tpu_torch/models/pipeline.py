@@ -1,8 +1,7 @@
 """The full iterative track-finding schedule on one torch device.
 
-Port of `gnn_track_finding_tpu.models.pipeline` (pipeline.py:34-86,
-138-285, 288-312, 452-488).  The schedule of the reference
-(run_gnn_trackml_mod.sh:71-148):
+Port of `gnn_track_finding_tpu.models.pipeline` (pipeline.py:34-506).
+The schedule of the reference (run_gnn_trackml_mod.sh:71-148):
 
   prepare            : seed states, activation, priors, weights, degrees
   iteration 1        : clustering on seed states (chi2=1.0, KL=2.0)
@@ -18,29 +17,40 @@ block of the edge arrays and calls the same function
 single-device one.
 
 Two drivers run it.  `run_pipeline_fast` / `stream_pipeline` (production)
-run everything eagerly on the device that holds the GraphState; the host
-syncs once per FastSV round and once per extraction (for the exact
-accepted count), and reads the candidates back with one copy of three
-small tensors at the end.  `run_pipeline` (parity) takes the extraction's
-CCA labels from the host union-find and, given the event's NetworkX-order
-tracker, replays the reference's extraction-time coordinate leak between
-an extraction and the next stage.
+run `full_pipeline_packed`: every shape is static and nothing between
+`prepare` and the return is read on the host (FastSV in cca.R_CAP fixed
+rounds, the gated clustering rows and the accepted heads compacted into
+static tables, the counts left on the device), and the results come back
+as one flat buffer in JAX's layout.  On a CUDA device that program is
+captured once per pad bucket as one CUDA graph (`CapturedSchedule`) and
+replayed per event; on the CPU it runs eagerly.  An event whose accepted
+count exceeds extract.ACC_PULL_CAP, or whose FastSV needed more than
+R_CAP rounds, is rerun by the exact host driver, as JAX's falls back.
+`run_pipeline` (parity) takes the extraction's CCA labels from the host
+union-find and, given the event's NetworkX-order tracker, replays the
+reference's extraction-time coordinate leak between an extraction and the
+next stage.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Iterable, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from gnn_track_finding_tpu_torch import _build
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data import native_loader
-from gnn_track_finding_tpu_torch.graph.state import GraphState
-from gnn_track_finding_tpu_torch.ops import (clustering, extract, extrapolate,
-                                             metadata, priors, seeding)
+from gnn_track_finding_tpu_torch.graph import cca
+from gnn_track_finding_tpu_torch.graph.state import GraphState, tensor_fields
+from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                             distinct_kernel, extract,
+                                             extrapolate, metadata, priors,
+                                             seeding)
 
 
 def prepare(g: GraphState, cfg: PipelineConfig, group=None) -> GraphState:
@@ -102,11 +112,19 @@ def metadata_step(g: GraphState, cfg: PipelineConfig, group=None,
     return priors.update_degrees(g, group)
 
 
+def extract_only(g: GraphState, cfg: PipelineConfig,
+                 labels: torch.Tensor | None = None, group=None
+                 ) -> Tuple[GraphState, extract.ExtractionResult]:
+    """Extraction + candidate-node removal, no metadata pruning (JAX
+    pipeline.py:105-111)."""
+    res = extract.extract_candidates(g, cfg, labels, group=group)
+    return extract.apply_extraction(g, res, cfg), res
+
+
 def extract_step(g: GraphState, cfg: PipelineConfig, i: int, group=None,
                  routing=None) -> Tuple[GraphState, extract.ExtractionResult]:
     """Extraction + node removal + (even iterations) metadata pruning."""
-    res = extract.extract_candidates(g, cfg, group=group)
-    g = extract.apply_extraction(g, res, cfg)
+    g, res = extract_only(g, cfg, group=group)
     if i % 2 == 0:
         g = metadata_step(g, cfg, group, routing)
     return g, res
@@ -135,28 +153,124 @@ def reset_reactivate(g: GraphState, cfg: PipelineConfig) -> GraphState:
 class ScheduleResults(NamedTuple):
     graph: GraphState
     acc_count: torch.Tensor     # (I,) accepted candidates per iteration
-    acc_nodes: torch.Tensor     # (sum of counts, H) node ids, -1 padded
-    acc_pvals: torch.Tensor     # (sum of counts, 2) (pval_xy, pval_zr)
-    cca_rounds: List[int]       # FastSV rounds per extraction
+    acc_nodes: torch.Tensor     # (I, cap, H) accepted heads, -1 padded
+    acc_pvals: torch.Tensor     # (I, cap, 2) their (pval_xy, pval_zr)
+    cca_rounds: torch.Tensor    # (I,) FastSV rounds per extraction
+    overflow: torch.Tensor      # (I,) bool: count over the cap, or FastSV
+                                # still changing labels after R_CAP rounds
 
 
 def full_pipeline_results(g: GraphState, cfg: PipelineConfig, group=None,
                           routing=None) -> ScheduleResults:
-    """The whole schedule; accepted candidates of every iteration, in
-    iteration then row order, left on the device (under a group: the
-    same on every rank, the graph the rank's block)."""
+    """The whole schedule (JAX pipeline.py:288-312), every per-iteration
+    result stacked and left on the device: nothing after `prepare` is read
+    on the host, so on one device this is the program a CUDA graph
+    captures (under a group: the same on every rank, the graph the rank's
+    block; the adaptive FastSV loop there reads one flag per round)."""
     g = prepare(g, cfg, group)
-    counts, nodes, pvals, rounds = [], [], [], []
+    res = []
     for i in range(1, cfg.num_iterations + 1):
-        g, res = iteration(g, cfg, i, group=group, routing=routing)
-        counts.append(res.acc_nodes.shape[0])
-        nodes.append(res.acc_nodes)
-        pvals.append(res.acc_pvals)
-        rounds.append(res.cca_rounds)
+        g, r = iteration(g, cfg, i, group=group, routing=routing)
+        res.append(r)
+    counts = torch.stack([r.acc_count for r in res])
+    cap = res[0].acc_nodes.shape[0]
     return ScheduleResults(
-        graph=g, acc_count=torch.tensor(counts, dtype=torch.int64),
-        acc_nodes=torch.cat(nodes), acc_pvals=torch.cat(pvals),
-        cca_rounds=rounds)
+        graph=g, acc_count=counts,
+        acc_nodes=torch.stack([r.acc_nodes for r in res]),
+        acc_pvals=torch.stack([r.acc_pvals for r in res]),
+        cca_rounds=torch.stack([r.cca_rounds for r in res]),
+        overflow=(counts > cap) | ~torch.stack([r.cca_converged
+                                                for r in res]))
+
+
+def full_pipeline(g: GraphState, cfg: PipelineConfig):
+    """The whole schedule -> (final graph, accepted (I, C), cand_nodes
+    (I, C, H)), stacked on the device (JAX pipeline.py:491-506)."""
+    g = prepare(g, cfg)
+    accepted, cand_nodes = [], []
+    for i in range(1, cfg.num_iterations + 1):
+        g, res = iteration(g, cfg, i)
+        accepted.append(res.accepted)
+        cand_nodes.append(res.cand_nodes)
+    return g, torch.stack(accepted), torch.stack(cand_nodes)
+
+
+def _words(values, like: torch.Tensor) -> torch.Tensor:
+    """A (len(values),) int32 tensor of python ints, written on the device
+    (no host-to-device copy, so it can be captured)."""
+    out = torch.empty(len(values), dtype=torch.int32, device=like.device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
+def pack_results(counts: torch.Tensor, nodes: torch.Tensor,
+                 pvals: torch.Tensor, narrow: bool) -> torch.Tensor:
+    """Pack (counts (I,), nodes (I, cap, L) -1 padded, pvals (I, cap, 2))
+    into one flat int32 tensor whose bytes are JAX's uint32 words
+    (pipeline.py:339-364): a [cap, track_len, narrow, pv_wide] header, the
+    counts, the node ids (uint16 pairs when narrow, -1 -> sentinel 0xFFFF,
+    an odd count padded with one sentinel; int32 otherwise) and the
+    p-values' raw bits (float64 as two little-endian words each, anything
+    else as float32).  unpack_results is its inverse."""
+    n_it, cap, track_len = nodes.shape
+    flat = nodes.reshape(-1).to(torch.int64)
+    if narrow:
+        # the low 16 bits as the int16 of the same bit pattern
+        lo = ((flat & 0xFFFF) ^ 0x8000) - 0x8000
+        nd = lo.to(torch.int16)
+        if nd.shape[0] % 2:
+            nd = torch.cat([nd, torch.full((1,), -1, dtype=torch.int16,
+                                           device=nd.device)])
+        nd32 = nd.view(torch.int32)
+    else:
+        nd32 = flat.to(torch.int32)
+    pv_wide = pvals.dtype == torch.float64
+    pv = pvals.reshape(-1)
+    pv32 = pv.view(torch.int32) if pv_wide else \
+        pv.to(torch.float32).view(torch.int32)
+    header = _words([cap, track_len, int(narrow), int(pv_wide)], nodes)
+    return torch.cat([header, counts.to(torch.int32), nd32, pv32])
+
+
+def unpack_results(buf: np.ndarray, n_it: int):
+    """Host-side inverse of pack_results (JAX pipeline.py:367-390) over the
+    buffer's words (uint32 or int32) -> (counts (I,), nodes (I, cap, L)
+    int32, pvals (I, cap, 2), sentinel): node entries equal to `sentinel`
+    are padding."""
+    buf = np.ascontiguousarray(buf).view(np.uint32)
+    cap, track_len, narrow, pv_wide = (int(buf[0]), int(buf[1]),
+                                       bool(buf[2]), bool(buf[3]))
+    counts = buf[4:4 + n_it].astype(np.int64)
+    n_nd = n_it * cap * track_len
+    off = 4 + n_it
+    if narrow:
+        nd32 = buf[off:off + (n_nd + 1) // 2]
+        nodes = nd32.view(np.uint16)[:n_nd].astype(np.int32)
+        sentinel = 0xFFFF
+        off += (n_nd + 1) // 2
+    else:
+        nodes = np.ascontiguousarray(buf[off:off + n_nd]).view(np.int32)
+        sentinel = -1
+        off += n_nd
+    nodes = nodes.reshape(n_it, cap, track_len)
+    pv_dtype = np.float64 if pv_wide else np.float32
+    pvals = np.ascontiguousarray(buf[off:]).view(pv_dtype) \
+        .reshape(n_it, cap, 2)
+    return counts, nodes, pvals, sentinel
+
+
+def full_pipeline_packed(g: GraphState, cfg: PipelineConfig
+                         ) -> Tuple[GraphState, torch.Tensor]:
+    """full_pipeline_results with the whole host readback in one flat
+    int32 tensor (JAX pipeline.py:322-336): pack_results' layout, then
+    the FastSV rounds (I,) and the overflow flags (I,), one word each.
+    -> (final graph, packed); the graph stays on the device."""
+    res = full_pipeline_results(g, cfg)
+    narrow = g.num_padded_nodes <= 0xFFFF     # ids <= n_pad - 1 < sentinel
+    return res.graph, torch.cat([
+        pack_results(res.acc_count, res.acc_nodes, res.acc_pvals, narrow),
+        res.cca_rounds.to(torch.int32), res.overflow.to(torch.int32)])
 
 
 @dataclasses.dataclass
@@ -177,21 +291,184 @@ class PipelineResult:
     mutations: list = dataclasses.field(default_factory=list)
 
 
-def _unpack(res: ScheduleResults) -> PipelineResult:
-    """One device-to-host copy of the result tensors -> candidate records."""
-    nodes = res.acc_nodes.cpu().numpy()
-    pvals = res.acc_pvals.cpu().numpy()
+# Events the fast drivers reran through the exact host driver (an accepted
+# count over the cap, or FastSV unconverged after R_CAP rounds)
+fallbacks = 0
+
+
+def unpack_packed(g_in: GraphState, g_out: GraphState, buf: np.ndarray,
+                  cfg: PipelineConfig) -> PipelineResult:
+    """Candidates from full_pipeline_packed's buffer read back to the host
+    (JAX pipeline.py:393-414).  An event that overflowed is rerun by
+    run_pipeline with device FastSV (its adaptive loop and exact pulls),
+    on g_in's device, and counted in `fallbacks`."""
+    global fallbacks
+    n_it = cfg.num_iterations
+    words = np.ascontiguousarray(buf).view(np.uint32)
+    rounds = words[-2 * n_it:-n_it].astype(np.int64)
+    overflow = words[-n_it:] != 0
+    counts, nodes, pvals, sentinel = unpack_results(words[:-2 * n_it], n_it)
+    if overflow.any():                  # a count over the cap, or FastSV
+        fallbacks += 1
+        return run_pipeline(g_in, cfg, host_cca=False)
     candidates: List[Candidate] = []
-    row = 0
-    for it, count in enumerate(res.acc_count.tolist()):
-        for _ in range(count):
-            nn = nodes[row]
-            candidates.append(Candidate(nodes=nn[nn >= 0], iteration=it + 1,
-                                        pval_xy=float(pvals[row, 0]),
-                                        pval_zr=float(pvals[row, 1])))
-            row += 1
-    return PipelineResult(graph=res.graph, candidates=candidates,
-                          per_iteration=[], cca_rounds=res.cca_rounds)
+    for it in range(n_it):
+        for c in range(int(counts[it])):
+            nn = nodes[it, c]
+            nn = nn[nn != sentinel].astype(np.int64)
+            candidates.append(Candidate(nodes=nn, iteration=it + 1,
+                                        pval_xy=float(pvals[it, c, 0]),
+                                        pval_zr=float(pvals[it, c, 1])))
+    return PipelineResult(graph=g_out, candidates=candidates,
+                          per_iteration=[], cca_rounds=rounds.tolist())
+
+
+def run_pipeline_eager(g: GraphState, cfg: PipelineConfig) -> PipelineResult:
+    """full_pipeline_packed run op by op on g's device, then the readback:
+    the fast drivers' path on the CPU, and what the captured program is
+    held to on the card."""
+    g_out, packed = full_pipeline_packed(g, cfg)
+    g_out = g_out.replace(n_nodes=g.n_nodes, n_edges=g.n_edges)
+    return unpack_packed(g, g_out, packed.cpu().numpy(), cfg)
+
+
+# ---------------------------------------------------------------- capture
+
+def program_key(g: GraphState, cfg: PipelineConfig) -> tuple:
+    """What a captured program depends on: the device, dtype and pad
+    bucket (padded N and E, K, layers) and the config, never the event's
+    true sizes (the counterpart of JAX's _normalize_static,
+    pipeline.py:438-449), plus the head cap and the FastSV rounds."""
+    return (g.device, g.dtype, g.num_padded_nodes, g.num_padded_edges,
+            g.max_degree, g.n_layers, cfg, extract.ACC_PULL_CAP, cca.R_CAP)
+
+
+class _Slot:
+    """A pinned host buffer for one event's packed readback, and the CUDA
+    event recorded after its copy."""
+
+    def __init__(self, like: torch.Tensor):
+        self.buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        self.copied = torch.cuda.Event()
+
+
+class CapturedSchedule:
+    """full_pipeline_packed of one pad bucket, captured once as one CUDA
+    graph and replayed per event.
+
+    The capture runs after one warm-up run on a side stream (the kernel
+    library built first) and in capture_error_mode "thread_local", so a
+    prefetch thread may go on building the next event on the device while
+    it runs.  The program's memory (every intermediate of one event, in
+    the graph's private pool, and a copy of one event's state as its
+    inputs) stays reserved while it is cached.  Each
+    event: its state tensors are copied into the program's inputs (device
+    to device), the graph is replayed, the final state is cloned out of
+    the program's outputs (a fresh GraphState, as JAX returns a fresh
+    g_out) and the packed buffer is copied, non-blocking, into a pinned
+    host slot; nothing of that waits for the device.  The kernels' launch
+    counters count the warm-up and the capture, not the replays;
+    `launches` holds the launches captured, which every replay makes."""
+
+    def __init__(self, g: GraphState, cfg: PipelineConfig):
+        dev = g.device
+        self.cfg = cfg
+        _build.library()                      # nvcc outside the capture
+        self.inputs = {name: getattr(g, name).clone()
+                       for name in tensor_fields()}
+        static = g.replace(n_nodes=0, n_edges=0, **self.inputs)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            full_pipeline_packed(static, cfg)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        counters = (cluster_kernel.cluster_core,
+                    distinct_kernel.distinct_counts)
+        before = [c.launches for c in counters]
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            t0 = time.perf_counter()
+            reserved = torch.cuda.memory_reserved(dev)
+            self.out, self.packed = full_pipeline_packed(static, cfg)
+            t1 = time.perf_counter()
+        self.capture_seconds = t1 - t0
+        self.instantiate_seconds = time.perf_counter() - t1
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = {"gmr_cluster": counters[0].launches - before[0],
+                         "distinct_counts": counters[1].launches - before[1]}
+        self._free: List[_Slot] = []
+
+    def launch(self, g: GraphState) -> "_Pending":
+        """Enqueue one event on the current stream; nothing waits."""
+        for name, t in self.inputs.items():
+            t.copy_(getattr(g, name))
+        self.graph.replay()
+        g_out = clone_state(self.out).replace(n_nodes=g.n_nodes,
+                                              n_edges=g.n_edges)
+        slot = self._free.pop() if self._free else _Slot(self.packed)
+        slot.buf.copy_(self.packed, non_blocking=True)
+        slot.copied.record()
+        return _Pending(self, g, g_out, slot)
+
+
+def clone_state(g: GraphState) -> GraphState:
+    """Every tensor of g in fresh memory."""
+    return g.replace(**{name: getattr(g, name).clone()
+                        for name in tensor_fields()})
+
+
+class _Pending:
+    """An event in flight: its result once the readback has landed."""
+
+    def __init__(self, program: CapturedSchedule, g_in, g_out, slot: _Slot):
+        self.program, self.g_in, self.g_out, self.slot = (program, g_in,
+                                                          g_out, slot)
+
+    def result(self) -> PipelineResult:
+        self.slot.copied.synchronize()
+        out = unpack_packed(self.g_in, self.g_out, self.slot.buf.numpy(),
+                            self.program.cfg)
+        self.program._free.append(self.slot)
+        return out
+
+
+# the captured programs by program_key, least recently used first
+_PROGRAMS: "collections.OrderedDict[tuple, CapturedSchedule]" = \
+    collections.OrderedDict()
+MAX_PROGRAMS = 4
+
+
+def captured_program(g: GraphState, cfg: PipelineConfig) -> CapturedSchedule:
+    """The cached program of g's pad bucket, captured on first use; the
+    least recently used of MAX_PROGRAMS is dropped for a new one."""
+    key = program_key(g, cfg)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        while len(_PROGRAMS) >= MAX_PROGRAMS:
+            _PROGRAMS.popitem(last=False)
+        prog = _PROGRAMS[key] = CapturedSchedule(g, cfg)
+    _PROGRAMS.move_to_end(key)
+    return prog
+
+
+def clear_programs() -> None:
+    """Drop every captured program (their memory returns to the allocator)."""
+    _PROGRAMS.clear()
+
+
+class _Done(NamedTuple):
+    """An event run eagerly (CPU tensors)."""
+    out: PipelineResult
+
+    def result(self) -> PipelineResult:
+        return self.out
+
+
+def _dispatch(g: GraphState, cfg: PipelineConfig):
+    """-> an object whose result() is the event's PipelineResult."""
+    if g.device.type == "cuda":
+        return captured_program(g, cfg).launch(g)
+    return _Done(run_pipeline_eager(g, cfg))
 
 
 def _mask_to_host(mask: torch.Tensor, buf: torch.Tensor | None) -> np.ndarray:
@@ -238,6 +515,7 @@ class DriverStep(NamedTuple):
     candidates: List[Candidate]
     mutations: list                     # leak replay [(node, xyzr)], in order
     graph: GraphState                   # after extraction, leak and metadata
+    cca_rounds: int = 0                 # FastSV rounds (0: host CCA)
 
 
 def driver_steps(g: GraphState, cfg: PipelineConfig,
@@ -261,18 +539,22 @@ def driver_steps(g: GraphState, cfg: PipelineConfig,
         slot_out_np = g.slot_out.cpu().numpy()
     for i in range(1, cfg.num_iterations + 1):
         staged = stage_step(g, cfg, i, kl_thresholds)
-        labels = active_in = None
+        active_in = None
         if read_mask:
             active_in = _mask_to_host(staged.edge_mask & staged.active, buf)
         if host_cca:
+            rounds = 0
             labels = torch.from_numpy(
                 native_loader.connected_components_native(
                     src_np, dst_np, active_in, g.num_padded_nodes)
                 .astype(np.int64)).to(g.device)
+        else:
+            # the adaptive loop: exact whatever the rounds
+            labels, rounds = cca.connected_components_fastsv(
+                staged, staged.edge_mask & staged.active)
         res = extract.extract_candidates(staged, cfg, labels)
         g = extract.apply_extraction(staged, res, cfg)
-        nodes = res.acc_nodes.cpu().numpy()
-        pvals = res.acc_pvals.cpu().numpy()
+        nodes, pvals = (t.cpu().numpy() for t in extract.accepted_rows(res))
         candidates: List[Candidate] = []
         acc_sets = []
         for row, pv in zip(nodes, pvals):
@@ -292,19 +574,20 @@ def driver_steps(g: GraphState, cfg: PipelineConfig,
         if i % 2 == 0:
             g = metadata.remove_state_metadata(g, cfg)
         yield DriverStep(iteration=i, staged=staged, result=res,
-                         candidates=candidates, mutations=muts, graph=g)
+                         candidates=candidates, mutations=muts, graph=g,
+                         cca_rounds=rounds)
 
 
 def run_pipeline(g: GraphState, cfg: PipelineConfig,
                  kl_thresholds: torch.Tensor | None = None,
                  host_cca: bool = True, tracker=None) -> PipelineResult:
     """Host driver of the schedule (JAX pipeline.py:187-285): stage by
-    stage, with the accepted candidates pulled after each extraction.
+    stage, with every accepted candidate pulled after each extraction.
 
     host_cca: the extraction's CCA labels come from the union-find of
     data/native_loader.py over edge_mask & active, copied to the host once
     per extraction (src/dst once per event); False runs FastSV on the
-    device.
+    device in its adaptive loop (one host read per round).
     tracker: the event's graph/nxorder.RefOrderTracker (graph/build.py
     build_event).  Under bug_compat it replays each extraction's
     close-proximity merges and applies the reference's GNN-coordinate leak
@@ -317,26 +600,30 @@ def run_pipeline(g: GraphState, cfg: PipelineConfig,
         out.graph = step.graph
         out.candidates += step.candidates
         out.per_iteration.append(step.result)
-        out.cca_rounds.append(step.result.cca_rounds)
+        out.cca_rounds.append(step.cca_rounds)
         out.mutations.append(step.mutations)
     return out
 
 
 def run_pipeline_fast(g: GraphState, cfg: PipelineConfig) -> PipelineResult:
-    """Production driver: the whole schedule, then one readback."""
-    return _unpack(full_pipeline_results(g, cfg))
+    """Production driver (JAX pipeline.py:452-459): one dispatch of the
+    packed schedule — on a CUDA device a replay of the pad bucket's
+    captured program — and one readback."""
+    return _dispatch(g, cfg).result()
 
 
 def stream_pipeline(graphs: Iterable[GraphState], cfg: PipelineConfig,
                     depth: int = 1) -> Iterator[PipelineResult]:
-    """Multi-event streaming: event i+1's schedule is issued before event
-    i's results are read back, with `depth` events held unread.  Yields
-    one PipelineResult per input graph, in order."""
+    """Multi-event streaming (JAX pipeline.py:462-488): event i+1 is
+    dispatched before event i's readback is waited on and unpacked, with
+    `depth` events held unread, so on the card one event's readback and
+    unpack (and, fed by data/prefetch.py, the next events' ingest) run
+    while the device works on the next.  Yields one PipelineResult per
+    input graph, in order."""
     pending: collections.deque = collections.deque()
     for g in graphs:
-        res = full_pipeline_results(g, cfg)
-        if len(pending) >= depth:
-            yield _unpack(pending.popleft())
-        pending.append(res)
+        pending.append(_dispatch(g, cfg))
+        if len(pending) > depth:
+            yield pending.popleft().result()
     while pending:
-        yield _unpack(pending.popleft())
+        yield pending.popleft().result()

@@ -18,8 +18,12 @@ on rows that are not found.
 Inputs: `states` (the round's per-edge fields, `SlotStates`), `tab`
 (rows, kc) int64 edge ids of each row's member slots — the members are
 the leading non-negative entries, -1 after them, as the rank compaction
-of clustering.py builds them — node_xyzr (rows, 4) and klthr (rows,).
-Every row is a gated row.
+of clustering.py builds them — node_xyzr (rows, 4), klthr (rows,) and
+`count`, a () int64 device tensor: the leading `count` rows are the live
+(gated) ones, and the rest come out not found whatever their entries
+(None: every row is live).  The kernel reads the count from device
+memory, so the host never needs it: its grid covers every row and a row
+at or past the count holds no member.
 """
 
 from __future__ import annotations
@@ -198,10 +202,15 @@ def core_rows_plain(pk, valid, node_xyzr, klthr, *, chi2_thr: float,
             torch.where(found, mprior, zero), remaining & found[:, None])
 
 
-def cluster_core_plain(states: SlotStates, tab, node_xyzr, klthr, *,
+def cluster_core_plain(states: SlotStates, tab, node_xyzr, klthr,
+                       count: torch.Tensor | None = None, *,
                        chi2_thr: float, cfg: PipelineConfig):
-    """The packed gather, then the row-space core."""
+    """The packed gather, then the row-space core; rows at or past
+    `count` have no member."""
     pk, valid = pack_rows(states, tab)
+    if count is not None:
+        live = torch.arange(tab.shape[0], device=tab.device) < count
+        valid = valid & live[:, None]
     return core_rows_plain(pk, valid, node_xyzr, klthr, chi2_thr=chi2_thr,
                            cfg=cfg)
 
@@ -210,7 +219,7 @@ class _Args(ctypes.Structure):
     """struct ClusterArgs of csrc/gmr_cluster.cu, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "tab", "p_sv", "p_cov", "j_sv", "j_cov", "prior", "xyzr", "nodex",
-        "klthr", "found", "pm", "pc", "mprior", "deact")]
+        "klthr", "live", "found", "pm", "pc", "mprior", "deact")]
         + [(name, ctypes.c_longlong) for name in (
             "tab_stride", "p_sv_stride", "p_cov_stride", "j_sv_stride",
             "j_cov_stride", "prior_stride", "xyzr_stride")]
@@ -236,12 +245,13 @@ _INNER = {"p_sv": (3,), "p_cov": (3, 3), "j_sv": (3,), "j_cov": (3, 3),
           "prior": (), "xyzr": (4,)}
 
 
-def cluster_core(states: SlotStates, tab, node_xyzr, klthr, *,
+def cluster_core(states: SlotStates, tab, node_xyzr, klthr,
+                 count: torch.Tensor | None = None, *,
                  chi2_thr: float, cfg: PipelineConfig):
     """GMR core over compacted rows: the CUDA kernel on the card, the plain
     version for CPU tensors."""
     if tab.device.type == "cpu":
-        return cluster_core_plain(states, tab, node_xyzr, klthr,
+        return cluster_core_plain(states, tab, node_xyzr, klthr, count,
                                   chi2_thr=chi2_thr, cfg=cfg)
     if tab.device.type != "cuda":
         raise ValueError(f"cluster_core: unsupported device {tab.device}")
@@ -267,16 +277,20 @@ def cluster_core(states: SlotStates, tab, node_xyzr, klthr, *,
         raise ValueError("cluster_core: the state fields (one row per edge), "
                          "node_xyzr and klthr must share tab's CUDA device "
                          f"and the dtype {dtype}")
+    if count is not None and (count.shape != () or count.device != dev
+                              or count.dtype != torch.int64):
+        raise ValueError("cluster_core: count must be a () int64 tensor on "
+                         f"{dev}, not {tuple(count.shape)} {count.dtype} on "
+                         f"{count.device}")
     found = torch.empty((rows,), dtype=torch.bool, device=dev)
     pm = torch.empty((rows, 3), dtype=dtype, device=dev)
     pc = torch.empty((rows, 9), dtype=dtype, device=dev)
     mprior = torch.empty((rows,), dtype=dtype, device=dev)
     deact = torch.empty((rows, kc), dtype=torch.bool, device=dev)
-    if rows == 0:
-        return found, pm, pc, mprior, deact
     args = _Args(
         tab.data_ptr(), *(t.data_ptr() for t in states),
-        node_xyzr.data_ptr(), klthr.data_ptr(), found.data_ptr(),
+        node_xyzr.data_ptr(), klthr.data_ptr(),
+        None if count is None else count.data_ptr(), found.data_ptr(),
         pm.data_ptr(), pc.data_ptr(), mprior.data_ptr(), deact.data_ptr(),
         tab.stride(0), *strides, rows, kc,
         int(cfg.bug_compat), float(chi2_thr), float(cfg.endcap_boundary),

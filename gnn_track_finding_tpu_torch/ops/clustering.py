@@ -7,12 +7,16 @@ best chi2 pair and greedily absorbs further states by KL distance; the
 in-edges of the states left unabsorbed are deactivated.
 
 There is one code path.  The member in-edges of each node are compacted
-to the first kc slots in insertion order; the (cg, kc) edge-id rows of the
-cg gated nodes and the round's per-edge state tensors go to the core — the
-CUDA kernel on the card reads the member slots through the ids, the plain
-version on the CPU gathers packed rows first — and the narrow results
-scatter back to node space.  Every scatter writes one value per real cell;
-out-of-range writes go to one extra dump row that is sliced off.
+to the first kc slots in insertion order; the gated nodes' edge-id rows
+are compacted, in node order, to the front of a static (N, kc) row table
+(a cumsum scatter, JAX clustering.py:240-252, with room for every node)
+whose live row count stays on the device; the table and the round's
+per-edge state tensors go to the core — the CUDA kernel on the card reads
+the member slots through the ids, the plain version on the CPU gathers
+packed rows first — and the narrow results scatter back to node space.
+No shape depends on the data and nothing is read back to the host.
+Every scatter writes one value per real cell; out-of-range writes go to
+one extra dump row that is sliced off.
 
 Under an edge partition (`group` and `routing`, JAX clustering.py:186-224,
 293-386) each rank routes its edges' state rows to their head node's
@@ -76,13 +80,14 @@ def round_states(g: GraphState, use_updated: bool) -> cluster_kernel.SlotStates:
 
 class CoreInputs(NamedTuple):
     """The compacted rows a clustering round hands to the GMR core."""
-    ids: torch.Tensor           # (cg,) node of each row (the gated nodes)
-    tab: torch.Tensor           # (cg, kc) member edge ids, -1 padded
+    ids: torch.Tensor           # (rows,) node of each row; N past the count
+    tab: torch.Tensor           # (rows, kc) member edge ids, -1 padded
     states: cluster_kernel.SlotStates   # the round's per-edge fields
-    node_xyzr: torch.Tensor     # (cg, 4)
-    klthr: torch.Tensor         # (cg,) per-row KL threshold
+    node_xyzr: torch.Tensor     # (rows, 4)
+    klthr: torch.Tensor         # (rows,) per-row KL threshold
     chi2_thr: float
     member_slot: torch.Tensor   # (N, K) membership of the in-edge table
+    count: torch.Tensor         # () int64 live rows (the leading ones)
 
 
 def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
@@ -90,26 +95,33 @@ def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
                 kc: int = KC) -> CoreInputs:
     """Gated compaction: the member in-edge ids of the nodes with 3..15
     members, compacted to kc slots in insertion order (so each row's
-    members are its leading entries).  The gated rows are counted
-    (one host sync): a fixed N / 3 bound would not hold, since a node's
-    members are its in-edges and E / 3 exceeds N."""
-    dtype = g.dtype
+    members are its leading entries), the gated nodes' rows first in node
+    order.  The table holds N rows: a fixed N / 3 bound (JAX's) would not
+    hold, since a node's members are its in-edges and E / 3 exceeds N (the
+    full event gates 26,150 of 57,344 nodes).  Rows past the count hold no
+    member (tab -1) and come out of the core not found."""
+    n = g.num_padded_nodes
     member = (g.has_updated if use_updated else g.edge_mask) & g.edge_mask
     member_slot = _member_slots(g, member)
-    tab, count = _compact_member_edges(g, member_slot, kc)
-    gate = ((count > cfg.cluster_min_edges - 1)
-            & (count < cfg.cluster_max_edges + 1))
+    tab, n_members = _compact_member_edges(g, member_slot, kc)
+    gate = ((n_members > cfg.cluster_min_edges - 1)
+            & (n_members < cfg.cluster_max_edges + 1))
     chi2_thr, kl_thr = cfg.cluster_thresholds(use_updated)
-    ids = torch.nonzero(gate).squeeze(1)                            # (cg,)
-    tab_c = tab[ids]
+    # row of each gated node; the others go to the dump row n
+    dest = torch.where(gate, torch.cumsum(gate, dim=0) - 1, n)
+    ids = torch.full((n + 1,), n, dtype=torch.int64, device=g.device)
+    ids[dest] = torch.arange(n, device=g.device)
+    ids = ids[:n]
+    live = ids < n
+    node = torch.clamp(ids, max=n - 1)
     if kl_thresholds is None:
-        klthr_c = torch.full(ids.shape, kl_thr, dtype=dtype, device=g.device)
+        klthr = torch.full((n,), kl_thr, dtype=g.dtype, device=g.device)
     else:
-        klthr_c = kl_thresholds.to(dtype)[ids]
-    return CoreInputs(ids=ids, tab=tab_c,
+        klthr = kl_thresholds.to(g.dtype)[node]
+    return CoreInputs(ids=ids, tab=torch.where(live[:, None], tab[node], -1),
                       states=round_states(g, use_updated),
-                      node_xyzr=g.xyzr[ids], klthr=klthr_c, chi2_thr=chi2_thr,
-                      member_slot=member_slot)
+                      node_xyzr=g.xyzr[node], klthr=klthr, chi2_thr=chi2_thr,
+                      member_slot=member_slot, count=torch.sum(gate))
 
 
 def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
@@ -125,7 +137,8 @@ def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     (D * bucket, 29) buffer is the core's per-edge tensors, read through
     column views, and `tab` holds positions in that buffer.  Owner rows
     are the interleaved nodes r*D + rank; `ids` are owner rows.  The gated
-    rows are counted exactly, as in core_inputs."""
+    rows are counted on the host (one sync): this schedule is not
+    captured."""
     n, k_tab = g.in_edges.shape
     d = routing.n_shards
     rows = n // d
@@ -162,15 +175,18 @@ def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
                       states=cluster_kernel.unpack_states(recv),
                       node_xyzr=collect.owner_block_interleaved(g.xyzr,
                                                                 group)[ids],
-                      klthr=klthr, chi2_thr=chi2_thr, member_slot=member_slot)
+                      klthr=klthr, chi2_thr=chi2_thr, member_slot=member_slot,
+                      count=torch.full((), ids.shape[0], dtype=torch.int64,
+                                       device=g.device))
 
 
 def _expand(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-row results scattered to n rows; other rows zero."""
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+    """Per-row results scattered to n rows; other rows zero.  Rows whose
+    id is n (past the live count) land in a dump row that is sliced off."""
+    out = torch.zeros((n + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
     out[ids] = vals
-    return out
+    return out[:n]
 
 
 def cluster(g: GraphState, cfg: PipelineConfig, use_updated: bool,
@@ -194,7 +210,8 @@ def cluster(g: GraphState, cfg: PipelineConfig, use_updated: bool,
         x = owner_core_inputs(g, cfg, use_updated, group, routing,
                               kl_thresholds, kc)
     found_c, pm_c, pc_c, mprior_c, deact_c = cluster_kernel.cluster_core(
-        x.states, x.tab, x.node_xyzr, x.klthr, chi2_thr=x.chi2_thr, cfg=cfg)
+        x.states, x.tab, x.node_xyzr, x.klthr, x.count, chi2_thr=x.chi2_thr,
+        cfg=cfg)
     if group is None:
         # scatter the narrow per-row results back to node space
         found, pm, pc, mprior, deact = (

@@ -6,8 +6,11 @@ components over the active edges become rows of a (C, H) candidate matrix
 H x H analysis does the close-proximity same-layer merge; the innermost
 edge rotation keeps the reference's r/z typo under bug_compat; the
 two-plane Kalman fit runs as one H-1 step loop over all candidates; the
-chi2 survival function gives the p-values; accepted rows are compacted to
-the front.
+chi2 survival function gives the p-values; the first ACC_PULL_CAP
+accepted rows are compacted, in row order, into a static head.  Nothing
+here reads the device on the host (FastSV runs its fixed rounds, the
+accepted count stays a device scalar), so the whole extraction can be
+captured in a CUDA graph.
 
 bug_compat reproduces the rotation typo (extract_track_candidates.py:
 190-191) and filterpy's scalar-Q broadcast in the zr fit (:302).
@@ -25,6 +28,11 @@ from gnn_track_finding_tpu_torch.graph.state import GraphState
 from gnn_track_finding_tpu_torch.ops import linalg
 from gnn_track_finding_tpu_torch.ops.priors import count_by
 
+# Rows of the accepted head per extraction (JAX pipeline.py:315-319).  The
+# densest extraction of the committed events accepts 1,504 rows (the full
+# event, iteration 1); an event over the cap is rerun by the exact driver.
+ACC_PULL_CAP = 2048
+
 
 class ExtractionResult(NamedTuple):
     labels: torch.Tensor        # (N,) component label per node
@@ -36,9 +44,12 @@ class ExtractionResult(NamedTuple):
     merged_pair: torch.Tensor   # (C,) number of proximity-merged node pairs
     pval_xy: torch.Tensor       # (C,)
     pval_zr: torch.Tensor       # (C,)
-    acc_nodes: torch.Tensor     # (A, H) node indices of the accepted rows, in order
-    acc_pvals: torch.Tensor     # (A, 2) their (pval_xy, pval_zr)
-    cca_rounds: int             # FastSV hooking rounds (0: labels given)
+    acc_count: torch.Tensor     # () accepted rows
+    acc_nodes: torch.Tensor     # (cap, H) the first cap accepted rows' node
+                                # indices, in row order, -1 padded
+    acc_pvals: torch.Tensor     # (cap, 2) their (pval_xy, pval_zr), 0 padded
+    cca_rounds: torch.Tensor    # () FastSV hooking rounds (0: labels given)
+    cca_converged: torch.Tensor  # () bool: the labels are the components
 
 
 def _candidate_matrix(g: GraphState, labels: torch.Tensor, h: int,
@@ -175,18 +186,22 @@ def _kf_fit(coords, n_hits, cfg: PipelineConfig):
     zero = torch.zeros(c, dtype=dtype, device=dev)
     one = torch.ones(c, dtype=dtype, device=dev)
 
-    x_xy = torch.stack([coords[:, 0, 1], zero, zero], dim=1)
-    P_xy = torch.diag(torch.tensor([sxy2, 1.0, 1.0], dtype=dtype,
-                                   device=dev)).expand(c, 3, 3)
-    x_rz = torch.stack([coords[:, 0, 3], zero], dim=1)
-    P_rz = torch.tensor([[srz2, 0.0], [0.0, 1000.0]], dtype=dtype,
-                        device=dev).expand(c, 2, 2)
-    chi_xy = zero
-    chi_rz = zero
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye2 = torch.eye(2, dtype=dtype, device=dev)
-    h_xy = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
-    h_rz = torch.tensor([1.0, 0.0], dtype=dtype, device=dev)
+    h_xy = eye3[0]                       # [1, 0, 0]
+    h_rz = eye2[0]                       # [1, 0]
+    # the initial covariances, written on the device (no host copy)
+    P_xy = eye3.clone()
+    P_xy[0, 0].fill_(sxy2)               # diag(sxy2, 1, 1)
+    P_rz = torch.zeros((2, 2), dtype=dtype, device=dev)
+    P_rz[0, 0].fill_(srz2)
+    P_rz[1, 1].fill_(1000.0)
+    x_xy = torch.stack([coords[:, 0, 1], zero, zero], dim=1)
+    P_xy = P_xy.expand(c, 3, 3)
+    x_rz = torch.stack([coords[:, 0, 3], zero], dim=1)
+    P_rz = P_rz.expand(c, 2, 2)
+    chi_xy = zero
+    chi_rz = zero
     sw2 = cfg.ou_sigma ** 2
 
     for i in range(h - 1):
@@ -285,17 +300,24 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
     labels: (N,) component labels computed elsewhere (the minimum node
     index of each weak component over the active edges, as the host
     union-find of data/native_loader.py gives them); FastSV on the device
-    when absent.  cca_rounds is 0 when labels are given.
+    when absent, in cca.R_CAP fixed rounds on one device.  cca_rounds is 0
+    when labels are given.
     group: the edge partition's process group, which FastSV combines its
-    hooks over (JAX extract.py:334-361); everything after the labels is
-    node- and candidate-space work on replicated inputs, the same on
-    every rank."""
+    hooks over (JAX extract.py:334-361), in its adaptive loop; everything
+    after the labels is node- and candidate-space work on replicated
+    inputs, the same on every rank."""
     h = cfg.max_track_hits
-    if labels is None:
-        labels, rounds = cca.connected_components_fastsv(
-            g, g.edge_mask & g.active, group)
+    dev = g.device
+    converged = torch.ones((), dtype=torch.bool, device=dev)
+    if labels is not None:
+        rounds = torch.zeros((), dtype=torch.int64, device=dev)
+    elif group is None:
+        labels, rounds, converged = cca.connected_components_fixed(
+            g, g.edge_mask & g.active)
     else:
-        rounds = 0
+        labels, n_rounds = cca.connected_components_fastsv(
+            g, g.edge_mask & g.active, group)
+        rounds = torch.full((), n_rounds, dtype=torch.int64, device=dev)
     mat, size, row_of_node = _candidate_matrix(g, labels, h,
                                                cfg.min_track_hits)
     big_enough = size >= cfg.min_track_hits
@@ -320,14 +342,30 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
 
     accepted = (processed & (pval_xy >= cfg.track_acceptance_pval)
                 & (pval_zr >= cfg.track_acceptance_pval))
-    acc_rows = torch.nonzero(accepted).squeeze(1)    # in row order
+    # the static head: accepted row r goes to head row rank(r) while that
+    # is under the cap; every other row to a dump row that is sliced off
+    cap = min(ACC_PULL_CAP, c)
+    rank_acc = torch.cumsum(accepted, dim=0) - 1
+    dest = torch.where(accepted & (rank_acc < cap), rank_acc, cap)
+    acc_nodes = torch.full((cap + 1, h_), -1, dtype=mat.dtype, device=dev)
+    acc_nodes[dest] = mat
+    acc_pvals = torch.zeros((cap + 1, 2), dtype=pval_xy.dtype, device=dev)
+    acc_pvals[dest] = torch.stack([pval_xy, pval_zr], dim=1)
     return ExtractionResult(
         labels=labels, row_of_node=row_of_node, cand_nodes=mat,
         cand_size=size, processed=processed, accepted=accepted,
         merged_pair=n_pairs, pval_xy=pval_xy, pval_zr=pval_zr,
-        acc_nodes=mat[acc_rows],
-        acc_pvals=torch.stack([pval_xy, pval_zr], dim=1)[acc_rows],
-        cca_rounds=rounds)
+        acc_count=torch.sum(accepted), acc_nodes=acc_nodes[:cap],
+        acc_pvals=acc_pvals[:cap], cca_rounds=rounds,
+        cca_converged=converged)
+
+
+def accepted_rows(res: ExtractionResult):
+    """(nodes (A, H), pvals (A, 2)) of every accepted row in row order,
+    however many: the host driver's exact pull (reads the count)."""
+    rows = torch.nonzero(res.accepted).squeeze(1)
+    return (res.cand_nodes[rows],
+            torch.stack([res.pval_xy, res.pval_zr], dim=1)[rows])
 
 
 def apply_extraction(g: GraphState, res: ExtractionResult,
@@ -345,7 +383,7 @@ def apply_extraction(g: GraphState, res: ExtractionResult,
     new_node_mask = mask1 & ~frag
     # edge 2i+1 is edge 2i's reverse: test the pairs, then repeat
     alive_pair = new_node_mask[g.src[0::2]] & new_node_mask[g.dst[0::2]]
-    alive_e = torch.repeat_interleave(alive_pair, 2)
+    alive_e = alive_pair[:, None].expand(-1, 2).reshape(-1)
     new_edge_mask = g.edge_mask & alive_e
     return g.replace(node_mask=new_node_mask, edge_mask=new_edge_mask,
                      active=g.active & new_edge_mask)

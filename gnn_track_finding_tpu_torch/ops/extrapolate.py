@@ -180,9 +180,9 @@ def message_passing(g: GraphState, cfg: PipelineConfig,
     Sk = P_pred[:, 2, 2] + R
     K = P_pred[:, :, 2] / Sk[:, None]          # gain for H = [0, 0, 1]
     x_post = x_pred + K * (0.0 - x_pred[:, 2])[:, None]
-    h_row = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=g.device)
-    ikh = (torch.eye(3, dtype=dtype, device=g.device)
-           - K[:, :, None] * h_row[None, None, :])
+    eye3 = torch.eye(3, dtype=dtype, device=g.device)
+    h_row = eye3[2]                            # [0, 0, 1]
+    ikh = eye3 - K[:, :, None] * h_row[None, None, :]
     P_post = linalg.sandwich3(ikh, P_pred) + R * K[:, :, None] * K[:, None, :]
 
     # --- joint [a, b, tau] rebuild (ref :325-365) ---

@@ -33,8 +33,8 @@ def rz_sigmas(z, cfg: PipelineConfig):
     """(sigma_z, sigma_r) for hits at coordinate z: barrel sigma_r =
     sigma0rz, sigma_z = sigma0rz2, swapped in the endcap (helper.py:272-314)."""
     endcap = torch.abs(z) >= cfg.endcap_boundary
-    s_rz = torch.tensor(cfg.sigma0rz, dtype=z.dtype, device=z.device)
-    s_rz2 = torch.tensor(cfg.sigma0rz2, dtype=z.dtype, device=z.device)
+    s_rz = torch.full((), cfg.sigma0rz, dtype=z.dtype, device=z.device)
+    s_rz2 = torch.full((), cfg.sigma0rz2, dtype=z.dtype, device=z.device)
     return torch.where(endcap, s_rz, s_rz2), torch.where(endcap, s_rz2, s_rz)
 
 

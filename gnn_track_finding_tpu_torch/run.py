@@ -8,9 +8,11 @@ the toy generator (50 tracks, seed 1; the toy efficiency and the count of
 pure candidates follow).  By default it runs the parity host driver
 `run_pipeline` (host union-find CCA, extraction-leak replay through the
 NetworkX-order tracker), the JAX runner's default; --fast runs the
-production driver `run_pipeline_fast`.  --calibrate fits a KL-threshold
-LUT (quantile rule on emp_var) on 20 toy events (seed 0) and hands the
-event's per-node thresholds to `run_pipeline`.  --particles with --csv
+production driver `run_pipeline_fast`, which captures the schedule of the
+event's pad bucket as one CUDA graph at its first call and replays it
+(as does --stream).  --calibrate fits a KL-threshold LUT (quantile rule
+on emp_var) on 20 toy events (seed 0) and hands the event's per-node
+thresholds to `run_pipeline`.  --particles with --csv
 adds the TrackML efficiency report.  --stream N streams N copies of the
 event through the prefetch loader and `stream_pipeline` (ingest
 included) and reports events/s.  --json prints one JSON summary line
@@ -59,7 +61,8 @@ def main(argv=None) -> int:
                              "a cache must have been built for it (default: "
                              "the cache's own)")
     parser.add_argument("--fast", action="store_true",
-                        help="production driver run_pipeline_fast (device "
+                        help="production driver run_pipeline_fast (the "
+                             "schedule captured as one CUDA graph, device "
                              "FastSV, no leak replay, no tracker)")
     parser.add_argument("--f32", action="store_true",
                         help="float32 compute (default float64, the parity mode)")
@@ -159,7 +162,8 @@ def main(argv=None) -> int:
     per_it = [sum(1 for c in out.candidates if c.iteration == i)
               for i in range(1, cfg.num_iterations + 1)]
     print(f"[pipeline] {driver}: {len(out.candidates)} candidates {per_it} "
-          f"in {t_pipe:.3f}s (first call, kernel build included); FastSV "
+          f"in {t_pipe:.3f}s (first call, kernel build and any capture "
+          f"included); FastSV "
           f"rounds {out.cca_rounds}")
     summary = {"nodes": g.n_nodes, "edges": g.n_edges,
                "candidates": len(out.candidates), "pipeline_seconds": t_pipe}

@@ -382,7 +382,7 @@ def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
                 "distinct_counts": distinct_kernel.distinct_counts.launches}
     out["census"] = records
     out["acc_count"], out["acc_nodes"], out["acc_pvals"] = acc
-    out["cca_rounds"] = res.cca_rounds
+    out["cca_rounds"] = res.cca_rounds.tolist()
     out["graph"] = edge_shard.gather_graph(res.graph, group).to_numpy()
     out["bucket"] = r.bucket
     if check_kernels:

@@ -1,5 +1,7 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
-card, the schedule's float64 counts through the kernels, and the host
+card, the schedule's float64 counts through the kernels, the schedule
+captured as one CUDA graph per pad bucket against the same program run
+eagerly, and the host
 driver on the card (leak replay against the same driver on the CPU, host
 CCA labels, the reference digest), and the calibrated path (the clustering
 kernel under the runner's LUT thresholds, a calibrated toy run against the
@@ -364,3 +366,128 @@ def test_kernels_on_routed_owner_rows_match_plain(sharded_volume7, backend):
         checks = o["kernel_checks"]
         assert checks["cluster_seed"]["found"] > 0
         assert all(c["bitwise"] for c in checks.values()), checks
+
+
+def _bitwise_diff(a, b):
+    """Fields of two PipelineResults that differ bit for bit: candidates
+    (nodes, p-values), FastSV rounds, the final state's tensors."""
+    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
+    bad = []
+    key = lambda r: [(c.iteration, c.nodes.tolist(),
+                      np.float64(c.pval_xy).tobytes(),
+                      np.float64(c.pval_zr).tobytes()) for c in r.candidates]
+    if key(a) != key(b):
+        bad.append("candidates")
+    if a.cca_rounds != b.cca_rounds:
+        bad.append("cca_rounds")
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    for name in tensor_fields():
+        x, y = getattr(a.graph, name), getattr(b.graph, name)
+        if x.dtype in bits:
+            x, y = x.view(bits[x.dtype]), y.view(bits[y.dtype])
+        if not torch.equal(x, y):
+            bad.append(name)
+    return bad
+
+
+def _toy_graph(device, seed=1, num_tracks=50, dtype=torch.float64):
+    cfg = PipelineConfig(node_bucket=256, edge_bucket=1024)
+    ev = toymc.generate_event(num_tracks=num_tracks, seed=seed)
+    return build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs, cfg,
+                             device=device, dtype=dtype), cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("event", ["toy", "volume7"])
+def test_captured_schedule_equals_eager(cuda, event, dtype):
+    """run_pipeline_fast replays the pad bucket's CUDA graph: its first
+    call (the capture) and a replay are bitwise the eager program's run
+    (candidates, p-values, FastSV rounds, every field of the final state),
+    with both kernels in the graph and no fallback."""
+    pipeline.clear_programs()
+    if event == "toy":
+        g, cfg = _toy_graph(cuda, dtype=dtype)
+    else:
+        g, cfg = _volume7(cuda, dtype), CFG
+    before = pipeline.fallbacks
+    first = pipeline.run_pipeline_fast(g, cfg)
+    prog = pipeline.captured_program(g, cfg)
+    assert all(n > 0 for n in prog.launches.values()), prog.launches
+    n_launches = (cluster_kernel.cluster_core.launches,
+                  distinct_kernel.distinct_counts.launches)
+    replayed = pipeline.run_pipeline_fast(g, cfg)
+    assert n_launches == (cluster_kernel.cluster_core.launches,
+                          distinct_kernel.distinct_counts.launches)
+    eager = pipeline.run_pipeline_eager(g, cfg)
+    assert not _bitwise_diff(first, eager) and not _bitwise_diff(replayed,
+                                                                 eager)
+    assert pipeline.fallbacks == before and first.candidates
+    if event == "volume7" and dtype == torch.float64:
+        per_it = [sum(1 for c in first.candidates if c.iteration == i)
+                  for i in (1, 2, 3)]
+        assert per_it == [1055, 110, 2]
+    pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+def test_two_events_of_one_bucket_share_one_program(cuda):
+    """Two toy events of different true sizes in one pad bucket go through
+    one captured program, streamed and solo, each bitwise its eager run."""
+    pipeline.clear_programs()
+    graphs = [_toy_graph(cuda, seed=s, num_tracks=t)[0]
+              for s, t in ((3, 40), (5, 45))]
+    cfg = _toy_graph(cuda)[1]
+    assert graphs[0].n_nodes != graphs[1].n_nodes
+    streamed = list(pipeline.stream_pipeline(iter(graphs * 2), cfg, depth=2))
+    assert pipeline.captured_program(graphs[0], cfg) is \
+        pipeline.captured_program(graphs[1], cfg)
+    for g, out in zip(graphs * 2, streamed):
+        assert not _bitwise_diff(out, pipeline.run_pipeline_eager(g, cfg))
+        assert (out.graph.n_nodes, out.graph.n_edges) == (g.n_nodes,
+                                                          g.n_edges)
+    pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+def test_replay_makes_no_synchronising_call(cuda):
+    """Copying an event in, the replay, the state clone and the readback
+    copy run under torch.cuda.set_sync_debug_mode("error")."""
+    g = _volume7(cuda, torch.float64)
+    prog = pipeline.captured_program(g, CFG)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = prog.launch(g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not _bitwise_diff(pending.result(),
+                             pipeline.run_pipeline_eager(g, CFG))
+    pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["volume7", "synthetic"])
+def test_cluster_kernel_reads_the_row_count_on_the_device(cuda, source):
+    """The kernel with a device row count over a static row table: bitwise
+    its plain version with the same count on every row (the live rows as
+    without a count, the rest not found with zero outputs)."""
+    if source == "volume7":
+        g = pipeline.prepare(_volume7(cuda, torch.float64), CFG)
+        x = clustering.core_inputs(g, CFG, False)
+        inputs, count, thr = ((x.states, x.tab, x.node_xyzr, x.klthr),
+                              x.count, x.chi2_thr)
+        assert 0 < int(count) < x.tab.shape[0]
+    else:
+        inputs = testing.cluster_rows(9, 99, 16, device=cuda)
+        count, thr = torch.tensor(61, device=cuda), 1.0
+    live = int(count)
+    want = cluster_kernel.cluster_core_plain(*inputs, count, chi2_thr=thr,
+                                             cfg=CFG)
+    got = cluster_kernel.cluster_core(*inputs, count, chi2_thr=thr, cfg=CFG)
+    uncounted = cluster_kernel.cluster_core(*inputs, chi2_thr=thr, cfg=CFG)
+    torch.cuda.synchronize()
+    _assert_core_equal(got, want, torch.float64)
+    assert want[0][:live].any() and not got[0][live:].any()
+    for a, b in zip(got, uncounted):
+        assert torch.equal(a[:live], b[:live])
+    assert not got[4][live:].any() and not got[1][live:].any()

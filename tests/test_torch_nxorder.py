@@ -67,7 +67,8 @@ def test_extraction_merges_match_jax():
         active = (g.edge_mask & g.active).numpy()
         res = extract.extract_candidates(g, cfg)
         g = extract.apply_extraction(g, res, cfg)
-        acc = [set(row[row >= 0].tolist()) for row in res.acc_nodes.numpy()]
+        acc = [set(row[row >= 0].tolist())
+               for row in extract.accepted_rows(res)[0].numpy()]
         args = (active, vivl, xyzr, acc, cfg.min_track_hits,
                 cfg.node_merge_distance)
         ref = jtr.extraction_merges(*args)

@@ -61,7 +61,9 @@ def test_volume7_event_counts():
     per_it = [sum(1 for c in out.candidates if c.iteration == i)
               for i in (1, 2, 3)]
     assert per_it == [1055, 110, 2]
-    assert len(out.cca_rounds) == 3 and min(out.cca_rounds) >= 2
+    # the adaptive loop's rounds, counted on the device by the fixed-round
+    # FastSV of the schedule (6 / 4 / 4 on the card too)
+    assert out.cca_rounds == [6, 4, 4]
 
 
 def test_stream_pipeline_matches_solo_runs():

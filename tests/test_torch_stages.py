@@ -140,7 +140,8 @@ def test_extraction(staged, it):
                                    np.asarray(getattr(ref, name))[fitted],
                                    rtol=1e-9, atol=1e-15, err_msg=name)
     n_acc = int(ref.acc_count)
-    np.testing.assert_array_equal(res.acc_nodes.numpy(),
+    assert int(res.acc_count) == n_acc
+    np.testing.assert_array_equal(res.acc_nodes.numpy()[:n_acc],
                                   np.asarray(ref.acc_nodes)[:n_acc])
     assert_state_close(staged[after], g2)
 

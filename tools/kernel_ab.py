@@ -123,9 +123,11 @@ def main(argv=None) -> int:
         _build.check(rc, "earlier gmr_cluster")
         return out
 
-    def old_path(states, tab, node_xyzr, klthr, *, chi2_thr, cfg):
+    def old_path(states, tab, node_xyzr, klthr, count=None, *, chi2_thr,
+                 cfg):
         """The earlier clustering core: the packed gather, then the
-        earlier kernel (cluster_kernel.cluster_core's signature)."""
+        earlier kernel (cluster_kernel.cluster_core's signature; the rows
+        past `count` hold no member, so it finds nothing there)."""
         pk, valid = cluster_kernel.pack_rows(states, tab)
         return old_core(pk, valid, node_xyzr, klthr, chi2_thr, cfg)
 
@@ -162,8 +164,8 @@ def main(argv=None) -> int:
             old = lambda: old_core(pk, valid, x.node_xyzr, x.klthr,
                                    x.chi2_thr, cfg)
             new = lambda: cluster_kernel.cluster_core(
-                x.states, x.tab, x.node_xyzr, x.klthr, chi2_thr=x.chi2_thr,
-                cfg=cfg)
+                x.states, x.tab, x.node_xyzr, x.klthr, x.count,
+                chi2_thr=x.chi2_thr, cfg=cfg)
             want, got = old(), new()
             torch.cuda.synchronize()
             if dtype == torch.float64:
@@ -174,7 +176,7 @@ def main(argv=None) -> int:
                 print(f"{rnd} {name}: {int((got[0] != want[0]).sum())} flag "
                       "flips against the earlier kernel")
             key = f"gmr_cluster {rnd} {name}"
-            res = {"rows": x.tab.shape[0],
+            res = {"rows": x.tab.shape[0], "live_rows": int(x.count),
                    "earlier kernel alone vs current": in_turns(old, new)}
             if dtype == torch.float64:
                 stage = lambda: clustering.cluster(gr, cfg, rnd == "updated")
