@@ -61,15 +61,25 @@ PyTorch versions on the card:
   9. the edge-partitioned schedule (parallel/edge_shard.py) on the full
      event at float64: 2 ranks over gloo on this one card (rank processes
      started with spawn, after phase 2 built the kernels), then 1 rank
-     over NCCL, each against the single-device port (counts, candidates,
-     the gathered state: masks and integers exact, floats rtol 1e-12 and
-     grad_stats' variances to 1e-12 of their second moment); volume 7
-     twice through run_batched on a (2, 1) mesh, each event bitwise the
-     single-device run's; both kernels against their plain versions on
-     each rank's owner rows (both clustering rounds, the first reweight
-     pass), bitwise, and their device times and bounds there; the
+     over NCCL (NCCL refuses two ranks on one card), each against the
+     single-device port (counts, candidates, the gathered state: masks and
+     integers exact, floats rtol 1e-12 and grad_stats' variances to 1e-12
+     of their second moment); volume 7 twice through run_batched on a
+     (2, 1) mesh (gloo: eager, gloo cannot be captured), each event
+     bitwise the single-device run's; both kernels against their plain
+     versions on each rank's owner rows (both clustering rounds, the
+     first reweight pass; the static (N / D)-row table with its device
+     count), bitwise, and their device times and bounds there; the
      sharded per-event wall (best of 3), the census of collectives (bytes
      per collective and caller), and each kernel's launches per rank.
+     The NCCL rank's run_sharded captures the whole schedule as one CUDA
+     graph, its collectives inside: the first call, a replay and a replay
+     under torch.cuda.set_sync_debug_mode("error") bitwise the eager
+     program and the single-device run; the per-event wall, captured and
+     eager in turns, best of 5; capture and instantiate seconds, the graph
+     pool, the kernels' launches per replay, no fallback; and run_batched
+     on a (1, 1) NCCL mesh over volume 7 twice, one program captured, each
+     event bitwise the single-device run's.  A failed capture raises.
      Two ranks on one card measure the code path, not scaling;
  10. the analysis and calibration studies at float64, each on the card
      against the same call on CPU tensors, with both kernels' launches per
@@ -625,14 +635,18 @@ def sharded_phase(card, cuda, graph):
                                shape=(2, 1)))]).join()
     t_gloo = time.perf_counter() - t0
     t0 = time.perf_counter()
-    nccl = testing.spawn_ranks("schedule", 1, out_dir / "nccl",
-                               backend="nccl", device="cuda:0", timeout=300,
-                               **schedule).join()
-    runs = {"gloo": [r[0] for r in gloo], "nccl": nccl}
+    (nccl_jobs,) = testing.spawn_ranks(
+        "sequence", 1, out_dir / "nccl", backend="nccl", device="cuda:0",
+        timeout=400,
+        jobs=[("schedule", schedule),
+              ("captured", dict(event={"npz": str(FULL)}, reps=5)),
+              ("batched", dict(events=[{"npz": str(VOL7)}] * 2,
+                               shape=(1, 1)))]).join()
+    runs = {"gloo": [r[0] for r in gloo], "nccl": [nccl_jobs[0]]}
     print(f"rank processes: gloo world of 2 {t_gloo:.1f} s, NCCL world of 1 "
           f"{time.perf_counter() - t0:.1f} s (start, ingest, runs, checks)")
-    for backend, label in (("gloo", "gloo, 2 ranks on cuda:0"),
-                           ("nccl", "NCCL, 1 rank")):
+    for backend, label in (("gloo", "gloo, 2 ranks on cuda:0, eager"),
+                           ("nccl", "NCCL, 1 rank, eager")):
         ranks = runs[backend]
         r0 = ranks[0]
         bad = testing.states_differ(ref_graph, r0["graph"], rtol=1e-12)
@@ -674,15 +688,77 @@ def sharded_phase(card, cuda, graph):
         print(f"  host-staged collectives: none ({backend} was handed the "
               f"CUDA tensors of all {len(r0['census'])} collectives)")
 
-    per_event = {i: o for r in gloo for i, o in r[1].items()}
-    check(sorted(per_event) == [0, 1], "run_batched: events per rank")
-    for i, o in sorted(per_event.items()):
-        check(same_candidates(o, ref7, 0.0)
-              and not testing.states_differ(ref7_graph, o["graph"], rtol=0.0),
-              f"run_batched event {i} differs from the single-device run")
-    print(f"run_batched on a (2, 1) mesh (the gloo ranks), volume 7 twice: "
-          f"accepted {[per_event[i]['acc_count'] for i in (0, 1)]}, each "
-          f"event bitwise the single-device run's")
+    cap = nccl_jobs[1]
+    res = cap["result"]
+    walls = cap["walls"]
+    best = {k: min(v) for k, v in walls.items()}
+    census = sum(c["bytes"] for c in cap["census"])
+    print(f"{FULL.name} run_sharded float64, NCCL, 1 rank, path "
+          f"{cap['path']} (one CUDA graph, its {len(cap['census'])} "
+          f"collectives inside; routing bucket {cap['bucket']}): accepted "
+          f"{res['acc_count']}, FastSV rounds {res['cca_rounds']}; "
+          f"per-event wall, best of {len(walls['captured'])} in turns: "
+          f"captured {best['captured']:.4f} s, eager {best['eager']:.4f} s "
+          f"(captured {[round(w, 4) for w in walls['captured']]}, eager "
+          f"{[round(w, 4) for w in walls['eager']]}); capture "
+          f"{cap['capture_s']:.3f} s, end of capture + instantiate "
+          f"{cap['instantiate_s']:.3f} s; graph pool "
+          f"{cap['pool_bytes'] / 2**30:.3f} GiB; kernel launches per replay "
+          f"{cap['launches']}; census of one run {census} bytes in "
+          f"{len(cap['census'])} collectives; fallbacks {cap['fallbacks']}; "
+          f"fields differing bit for bit from the eager program (first "
+          f"call, a replay, a replay under the sync debug mode): "
+          f"{cap['differs']}")
+    check(cap["path"] == "captured", "NCCL rank: run_sharded did not "
+          "replay a captured program")
+    check(res["acc_count"] == EXPECTED_F64[FULL], "captured NCCL rank: counts")
+    check(not any(cap["differs"].values()),
+          f"captured NCCL rank differs from the eager program: "
+          f"{cap['differs']}")
+    check(same_candidates(res, ref, 0.0)
+          and not testing.states_differ(ref_graph, res["graph"], rtol=0.0),
+          "captured NCCL rank differs from the single-device run")
+    check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3},
+          f"captured NCCL rank: launches per replay {cap['launches']}")
+    check(cap["first_call_collectives"] == 2 * len(cap["census"]),
+          "captured NCCL rank: the warm-up and capture issued "
+          f"{cap['first_call_collectives']} collectives")
+    check(cap["fallbacks"] == 0, "captured NCCL rank: a fallback")
+    print(f"  the captured program is bitwise the single-device run "
+          f"(candidates, p-values, FastSV rounds, every field of the state)")
+    sharded_record = {
+        "accepted": res["acc_count"], "fastsv_rounds": res["cca_rounds"],
+        "path": cap["path"], "collectives": len(cap["census"]),
+        "census_bytes": census, "capture_s": cap["capture_s"],
+        "instantiate_s": cap["instantiate_s"],
+        "pool_gib": cap["pool_bytes"] / 2**30,
+        "launches_per_replay": cap["launches"], "walls_s": walls,
+        "best_s": best, "fallbacks": cap["fallbacks"], "card": card}
+
+    for mesh_shape, jobs_out in (((2, 1), [r[1] for r in gloo]),
+                                 ((1, 1), [nccl_jobs[2]])):
+        per_event = {i: o for r in jobs_out for i, o in r.items()}
+        check(sorted(per_event) == [0, 1], "run_batched: events per rank")
+        for i, o in sorted(per_event.items()):
+            check(same_candidates(o, ref7, 0.0)
+                  and not testing.states_differ(ref7_graph, o["graph"],
+                                                rtol=0.0),
+                  f"run_batched event {i} differs from the single-device run")
+        paths = sorted({o["path"] for o in per_event.values()})
+        programs = [r[max(r)]["programs"] for r in jobs_out]
+        want = ["eager"] if mesh_shape == (2, 1) else ["captured"]
+        check(paths == want, f"run_batched on {mesh_shape}: paths {paths}")
+        check(programs == ([0, 0] if want == ["eager"] else [1]),
+              f"run_batched on {mesh_shape}: programs per rank {programs}")
+        print(f"run_batched on a {mesh_shape} mesh ("
+              f"{'the gloo ranks' if want == ['eager'] else 'the NCCL rank'}"
+              f"), volume 7 twice: accepted "
+              f"{[per_event[i]['acc_count'] for i in (0, 1)]}, each event "
+              f"bitwise the single-device run's; path {paths[0]}; programs "
+              f"captured per rank {programs}")
+        sharded_record[f"run_batched {mesh_shape}"] = {
+            "paths": paths, "programs": programs}
+    print(json.dumps({"sharded_captured": sharded_record}))
 
     # -- both kernels on rank 0's owner rows (D = 2): device time, plain
     # version and bound, as in phase 6
@@ -697,17 +773,16 @@ def sharded_phase(card, cuda, graph):
             ids=None, tab=put(a["tab"]),
             states=cluster_kernel.unpack_states(put(a["packed"])),
             node_xyzr=put(a["node_xyzr"]), klthr=put(a["klthr"]),
-            chi2_thr=a["chi2_thr"], member_slot=None,
-            count=torch.full((), a["tab"].shape[0], device=cuda))
-        args = (x.states, x.tab, x.node_xyzr, x.klthr)
+            chi2_thr=a["chi2_thr"], member_slot=None, count=put(a["count"]))
+        args = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
         core_case(f"owner rows (rank 0 of 2), {rnd} round float64", args,
-                  cfg, f64, x.chi2_thr, check_found=x.tab.shape[0] > 0)
+                  cfg, f64, x.chi2_thr, check_found=int(x.count) > 0)
 
         def run():
             return cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr,
                                                cfg=cfg)
 
-        rec = {"rows": int(x.tab.shape[0]),
+        rec = {"rows": int(x.tab.shape[0]), "live_rows": int(x.count),
                "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
                "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
                    *args, chi2_thr=x.chi2_thr, cfg=cfg), reps=5),
@@ -725,14 +800,17 @@ def sharded_phase(card, cuda, graph):
             ok, xx, xx < nx[:, None], f64)), **distinct_bound(ok, xx)}
     del flush
     for key, rec in owner.items():
-        print(f"{key} on rank 0's owner rows ({rec['rows']} rows): kernel "
+        print(f"{key} on rank 0's owner rows ({rec['rows']} rows, "
+              f"{rec.get('live_rows', rec['rows'])} live): kernel "
               f"device time {rec['ms']:.4f} ms (L2 flushed), "
               f"{rec['ms_warm_l2']:.4f} ms (warm), plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
               f"({rec['bound_by']}: {rec['bytes']} bytes, {rec['ops']} ops)")
     launches = {name: {"gloo_2_ranks": [o["launches"][name]
                                         for o in runs["gloo"]],
-                       "nccl_1_rank": runs["nccl"][0]["launches"][name]}
+                       "nccl_1_rank": runs["nccl"][0]["launches"][name],
+                       "nccl_1_rank_captured_per_replay":
+                           cap["launches"][name]}
                 for name in ("gmr_cluster", "distinct_counts")}
     shutil.rmtree(out_dir, ignore_errors=True)
     return owner, launches

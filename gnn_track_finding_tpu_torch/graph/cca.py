@@ -9,8 +9,8 @@ then labels shortcut twice (f <- f[f]).  Labels are the minimum node
 index of each weak component.
 
 JAX runs the rounds in a device `while_loop`.  A CUDA graph has no such
-loop (the torch graph API offers conditional IF nodes only), so on one
-device the schedule runs a fixed R_CAP rounds: once the labels stop
+loop (the torch graph API offers conditional IF nodes only), so the
+schedule runs a fixed R_CAP rounds: once the labels stop
 changing a further round is the identity (each round is a function of the
 labels alone), so the labels equal the adaptive loop's.  The rounds the
 adaptive loop would run, and whether R_CAP sufficed, are counted on the
@@ -19,10 +19,11 @@ extraction needed more (models/pipeline.py).
 
 Under an edge partition (`group`, JAX cca.py:138-141,179,186-188) each
 rank hooks with its local pairs and the partial hooks combine by one (N,)
-all-reduce MIN before the shortcut, in the first round and in the loop;
-the combined labels are the same on every rank, and so is the
-convergence flag.  That schedule is not captured: its loop stops at the
-first round that changes nothing, read on the host once per round.
+all-reduce MIN before the shortcut, in every round.  The combined labels
+are the same on every rank, so the rounds count and the convergence flag
+are too, without a further collective: the fixed-round schedule issues
+R_CAP all-reduces per extraction and reads nothing on the host.  The
+adaptive loop (one host read per round) is the exact drivers' fallback.
 """
 
 from __future__ import annotations
@@ -93,11 +94,12 @@ def connected_components_fastsv(g, edge_ok: torch.Tensor, group=None
 
 
 def connected_components_fixed(g, edge_ok: torch.Tensor,
-                               max_rounds: int | None = None
+                               max_rounds: int | None = None, group=None
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
-    """Fixed-round FastSV on one device, nothing read on the host ->
-    (labels (N,) int64, rounds () int64, converged () bool).
+    """Fixed-round FastSV, nothing read on the host -> (labels (N,) int64,
+    rounds () int64, converged () bool), the same on every rank of
+    `group`.
 
     `rounds` is what the adaptive loop reports (its first round that
     changes nothing, counted on the device); `converged` is False when the
@@ -107,11 +109,11 @@ def connected_components_fixed(g, edge_ok: torch.Tensor,
     n = g.node_mask.shape[0]
     a, b, ok = _pairs(g, edge_ok)
     init = torch.arange(n, device=a.device)
-    f = _first_round(a, b, ok, init, n)
+    f = _first_round(a, b, ok, init, n, group)
     rounds = torch.ones((), dtype=torch.int64, device=a.device)
     done = torch.zeros((), dtype=torch.bool, device=a.device)
     for _ in range(max_rounds - 1):
-        new = _round(f, a, b, ok, n)
+        new = _round(f, a, b, ok, n, group)
         rounds = rounds + (~done).to(torch.int64)
         done = done | torch.all(new == f)
         f = new

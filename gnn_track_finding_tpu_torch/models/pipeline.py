@@ -14,7 +14,11 @@ The schedule of the reference (run_gnn_trackml_mod.sh:71-148):
 the whole schedule edge-partitioned: each rank of the group holds its
 block of the edge arrays and calls the same function
 (parallel/edge_shard.py).  With group=None every function is the
-single-device one.
+single-device one.  The edge-partitioned schedule is the same static
+program: on an NCCL group with CUDA tensors each rank captures it, its
+collectives inside, as one CUDA graph per (pad bucket, routing bucket,
+group) (`CapturedSchedule` with a group, replayed by
+edge_shard.run_sharded).
 
 Two drivers run it.  `run_pipeline_fast` / `stream_pipeline` (production)
 run `full_pipeline_packed`: every shape is static and nothing between
@@ -41,6 +45,7 @@ from typing import Iterable, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gnn_track_finding_tpu_torch import _build
 from gnn_track_finding_tpu_torch.config import PipelineConfig
@@ -158,15 +163,17 @@ class ScheduleResults(NamedTuple):
     cca_rounds: torch.Tensor    # (I,) FastSV rounds per extraction
     overflow: torch.Tensor      # (I,) bool: count over the cap, or FastSV
                                 # still changing labels after R_CAP rounds
+    path: str = "eager"         # how it ran: "eager", "captured" (a CUDA
+                                # graph's replay) or "exact" (the fallback)
 
 
 def full_pipeline_results(g: GraphState, cfg: PipelineConfig, group=None,
                           routing=None) -> ScheduleResults:
     """The whole schedule (JAX pipeline.py:288-312), every per-iteration
-    result stacked and left on the device: nothing after `prepare` is read
-    on the host, so on one device this is the program a CUDA graph
-    captures (under a group: the same on every rank, the graph the rank's
-    block; the adaptive FastSV loop there reads one flag per round)."""
+    result stacked and left on the device: nothing from `prepare` on is
+    read on the host, so this is the program a CUDA graph captures (under
+    a group: the results the same on every rank, the graph the rank's
+    block)."""
     g = prepare(g, cfg, group)
     res = []
     for i in range(1, cfg.num_iterations + 1):
@@ -181,6 +188,30 @@ def full_pipeline_results(g: GraphState, cfg: PipelineConfig, group=None,
         cca_rounds=torch.stack([r.cca_rounds for r in res]),
         overflow=(counts > cap) | ~torch.stack([r.cca_converged
                                                 for r in res]))
+
+
+def exact_results(out: "PipelineResult") -> ScheduleResults:
+    """A host-driver run (run_pipeline with device FastSV) as
+    ScheduleResults: every accepted row in the heads, whose cap rises to
+    the largest count when that is over ACC_PULL_CAP; nothing overflows."""
+    rows = [extract.accepted_rows(r) for r in out.per_iteration]
+    first = out.per_iteration[0].cand_nodes
+    cap = max([min(extract.ACC_PULL_CAP, first.shape[0])]
+              + [n.shape[0] for n, _ in rows])
+    n_it, dev = len(rows), first.device
+    nodes = torch.full((n_it, cap, first.shape[1]), -1, dtype=first.dtype,
+                       device=dev)
+    pvals = torch.zeros((n_it, cap, 2), dtype=rows[0][1].dtype, device=dev)
+    for it, (nd, pv) in enumerate(rows):
+        nodes[it, :nd.shape[0]] = nd
+        pvals[it, :pv.shape[0]] = pv
+    return ScheduleResults(
+        graph=out.graph,
+        acc_count=torch.tensor([n.shape[0] for n, _ in rows], device=dev),
+        acc_nodes=nodes, acc_pvals=pvals,
+        cca_rounds=torch.tensor(out.cca_rounds, device=dev),
+        overflow=torch.zeros(n_it, dtype=torch.bool, device=dev),
+        path="exact")
 
 
 def full_pipeline(g: GraphState, cfg: PipelineConfig):
@@ -334,13 +365,27 @@ def run_pipeline_eager(g: GraphState, cfg: PipelineConfig) -> PipelineResult:
 
 # ---------------------------------------------------------------- capture
 
-def program_key(g: GraphState, cfg: PipelineConfig) -> tuple:
+def program_key(g: GraphState, cfg: PipelineConfig, group=None,
+                routing=None) -> tuple:
     """What a captured program depends on: the device, dtype and pad
     bucket (padded N and E, K, layers) and the config, never the event's
     true sizes (the counterpart of JAX's _normalize_static,
-    pipeline.py:438-449), plus the head cap and the FastSV rounds."""
-    return (g.device, g.dtype, g.num_padded_nodes, g.num_padded_edges,
-            g.max_degree, g.n_layers, cfg, extract.ACC_PULL_CAP, cca.R_CAP)
+    pipeline.py:438-449), plus the head cap and the FastSV rounds; under
+    an edge partition also the group, its size, this rank, the backend
+    and the routing's bucket (its all_to_all split)."""
+    key = (g.device, g.dtype, g.num_padded_nodes, g.num_padded_edges,
+           g.max_degree, g.n_layers, cfg, extract.ACC_PULL_CAP, cca.R_CAP)
+    if group is None:
+        return key
+    return key + (group, dist.get_world_size(group), dist.get_rank(group),
+                  dist.get_backend(group), routing.bucket)
+
+
+def _routing_tensors(routing) -> dict:
+    """The tensors of an OwnerRouting (parallel/edge_shard.py) by field."""
+    return {f.name: getattr(routing, f.name)
+            for f in dataclasses.fields(routing)
+            if isinstance(getattr(routing, f.name), torch.Tensor)}
 
 
 class _Slot:
@@ -354,7 +399,12 @@ class _Slot:
 
 class CapturedSchedule:
     """full_pipeline_packed of one pad bucket, captured once as one CUDA
-    graph and replayed per event.
+    graph and replayed per event (`launch`); under an edge partition
+    (`group`, `routing`: an NCCL group on the card) the rank's
+    full_pipeline_results, its collectives inside the graph, with the
+    routing's tensors among the inputs (`replay`).  Every rank of the
+    group captures in lockstep: the same ops and collectives in the same
+    order, since each runs the same program.
 
     The capture runs after one warm-up run on a side stream (the kernel
     library built first) and in capture_error_mode "thread_local", so a
@@ -370,17 +420,28 @@ class CapturedSchedule:
     counters count the warm-up and the capture, not the replays;
     `launches` holds the launches captured, which every replay makes."""
 
-    def __init__(self, g: GraphState, cfg: PipelineConfig):
+    def __init__(self, g: GraphState, cfg: PipelineConfig, group=None,
+                 routing=None):
         dev = g.device
         self.cfg = cfg
         _build.library()                      # nvcc outside the capture
         self.inputs = {name: getattr(g, name).clone()
                        for name in tensor_fields()}
         static = g.replace(n_nodes=0, n_edges=0, **self.inputs)
+        self.routing_inputs = {}
+        if group is None:
+            body = lambda: full_pipeline_packed(static, cfg)
+        else:
+            self.routing_inputs = {name: t.clone() for name, t in
+                                   _routing_tensors(routing).items()}
+            static_routing = dataclasses.replace(routing,
+                                                 **self.routing_inputs)
+            body = lambda: full_pipeline_results(static, cfg, group,
+                                                 static_routing)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            full_pipeline_packed(static, cfg)
+            body()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         counters = (cluster_kernel.cluster_core,
@@ -389,7 +450,10 @@ class CapturedSchedule:
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             t0 = time.perf_counter()
             reserved = torch.cuda.memory_reserved(dev)
-            self.out, self.packed = full_pipeline_packed(static, cfg)
+            if group is None:
+                self.out, self.packed = body()
+            else:
+                self.results = body()
             t1 = time.perf_counter()
         self.capture_seconds = t1 - t0
         self.instantiate_seconds = time.perf_counter() - t1
@@ -409,6 +473,22 @@ class CapturedSchedule:
         slot.buf.copy_(self.packed, non_blocking=True)
         slot.copied.record()
         return _Pending(self, g, g_out, slot)
+
+    def replay(self, g: GraphState, routing) -> ScheduleResults:
+        """One edge-partitioned event (this rank's block g and routing):
+        inputs copied in, the graph replayed, every result cloned out, on
+        the current stream; nothing is read on the host."""
+        for name, t in self.inputs.items():
+            t.copy_(getattr(g, name))
+        for name, t in _routing_tensors(routing).items():
+            self.routing_inputs[name].copy_(t)
+        self.graph.replay()
+        r = self.results
+        return ScheduleResults(
+            graph=clone_state(r.graph).replace(n_nodes=g.n_nodes,
+                                               n_edges=g.n_edges),
+            **{k: getattr(r, k).clone() for k in ScheduleResults._fields
+               if k not in ("graph", "path")}, path="captured")
 
 
 def clone_state(g: GraphState) -> GraphState:
@@ -438,15 +518,17 @@ _PROGRAMS: "collections.OrderedDict[tuple, CapturedSchedule]" = \
 MAX_PROGRAMS = 4
 
 
-def captured_program(g: GraphState, cfg: PipelineConfig) -> CapturedSchedule:
-    """The cached program of g's pad bucket, captured on first use; the
-    least recently used of MAX_PROGRAMS is dropped for a new one."""
-    key = program_key(g, cfg)
+def captured_program(g: GraphState, cfg: PipelineConfig, group=None,
+                     routing=None) -> CapturedSchedule:
+    """The cached program of g's pad bucket (under a group: of this rank,
+    the group and the routing's bucket), captured on first use; the least
+    recently used of MAX_PROGRAMS is dropped for a new one."""
+    key = program_key(g, cfg, group, routing)
     prog = _PROGRAMS.get(key)
     if prog is None:
         while len(_PROGRAMS) >= MAX_PROGRAMS:
             _PROGRAMS.popitem(last=False)
-        prog = _PROGRAMS[key] = CapturedSchedule(g, cfg)
+        prog = _PROGRAMS[key] = CapturedSchedule(g, cfg, group, routing)
     _PROGRAMS.move_to_end(key)
     return prog
 
@@ -520,9 +602,13 @@ class DriverStep(NamedTuple):
 
 def driver_steps(g: GraphState, cfg: PipelineConfig,
                  kl_thresholds: torch.Tensor | None = None,
-                 host_cca: bool = True, tracker=None) -> Iterator[DriverStep]:
+                 host_cca: bool = True, tracker=None, group=None,
+                 routing=None) -> Iterator[DriverStep]:
     """The host driver's iterations one at a time, from a prepared
     GraphState (run_pipeline's loop; its arguments are run_pipeline's)."""
+    if group is not None and (host_cca or tracker is not None):
+        raise ValueError("an edge-partitioned host driver takes its labels "
+                         "from device FastSV, without a tracker")
     emulate_leak = tracker is not None and cfg.bug_compat
     read_mask = host_cca or emulate_leak
     buf = None
@@ -538,7 +624,7 @@ def driver_steps(g: GraphState, cfg: PipelineConfig,
         in_tab_np = g.in_edges.cpu().numpy()
         slot_out_np = g.slot_out.cpu().numpy()
     for i in range(1, cfg.num_iterations + 1):
-        staged = stage_step(g, cfg, i, kl_thresholds)
+        staged = stage_step(g, cfg, i, kl_thresholds, group, routing)
         active_in = None
         if read_mask:
             active_in = _mask_to_host(staged.edge_mask & staged.active, buf)
@@ -551,7 +637,7 @@ def driver_steps(g: GraphState, cfg: PipelineConfig,
         else:
             # the adaptive loop: exact whatever the rounds
             labels, rounds = cca.connected_components_fastsv(
-                staged, staged.edge_mask & staged.active)
+                staged, staged.edge_mask & staged.active, group)
         res = extract.extract_candidates(staged, cfg, labels)
         g = extract.apply_extraction(staged, res, cfg)
         nodes, pvals = (t.cpu().numpy() for t in extract.accepted_rows(res))
@@ -572,7 +658,7 @@ def driver_steps(g: GraphState, cfg: PipelineConfig,
                 g = _apply_gnn_mutations(g, muts, in_tab_np, slot_out_np,
                                          src_np)
         if i % 2 == 0:
-            g = metadata.remove_state_metadata(g, cfg)
+            g = metadata_step(g, cfg, group, routing)
         yield DriverStep(iteration=i, staged=staged, result=res,
                          candidates=candidates, mutations=muts, graph=g,
                          cca_rounds=rounds)
@@ -580,7 +666,8 @@ def driver_steps(g: GraphState, cfg: PipelineConfig,
 
 def run_pipeline(g: GraphState, cfg: PipelineConfig,
                  kl_thresholds: torch.Tensor | None = None,
-                 host_cca: bool = True, tracker=None) -> PipelineResult:
+                 host_cca: bool = True, tracker=None, group=None,
+                 routing=None) -> PipelineResult:
     """Host driver of the schedule (JAX pipeline.py:187-285): stage by
     stage, with every accepted candidate pulled after each extraction.
 
@@ -593,10 +680,13 @@ def run_pipeline(g: GraphState, cfg: PipelineConfig,
     close-proximity merges and applies the reference's GNN-coordinate leak
     (extract_track_candidates.py:113-116) before the next stage; without
     it coordinates stay as ingested.  A tracker follows one run: it
-    tracks the reference's orders through the extractions."""
-    g = prepare(g, cfg)
+    tracks the reference's orders through the extractions.
+    group, routing: the edge partition (host_cca False, no tracker): the
+    sharded schedule's exact fallback (parallel/edge_shard.py)."""
+    g = prepare(g, cfg, group)
     out = PipelineResult(graph=g, candidates=[], per_iteration=[])
-    for step in driver_steps(g, cfg, kl_thresholds, host_cca, tracker):
+    for step in driver_steps(g, cfg, kl_thresholds, host_cca, tracker,
+                             group, routing):
         out.graph = step.graph
         out.candidates += step.candidates
         out.per_iteration.append(step.result)

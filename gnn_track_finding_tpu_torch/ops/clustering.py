@@ -20,8 +20,9 @@ one extra dump row that is sliced off.
 
 Under an edge partition (`group` and `routing`, JAX clustering.py:186-224,
 293-386) each rank routes its edges' state rows to their head node's
-owner rank, runs the same core on its gated owner rows, and the narrow
-results are gathered back (`owner_core_inputs`, `cluster`).
+owner rank, runs the same core on its gated owner rows (compacted the
+same way into a static (N / D)-row table, the count on the device), and
+the narrow results are gathered back (`owner_core_inputs`, `cluster`).
 """
 
 from __future__ import annotations
@@ -107,13 +108,7 @@ def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     gate = ((n_members > cfg.cluster_min_edges - 1)
             & (n_members < cfg.cluster_max_edges + 1))
     chi2_thr, kl_thr = cfg.cluster_thresholds(use_updated)
-    # row of each gated node; the others go to the dump row n
-    dest = torch.where(gate, torch.cumsum(gate, dim=0) - 1, n)
-    ids = torch.full((n + 1,), n, dtype=torch.int64, device=g.device)
-    ids[dest] = torch.arange(n, device=g.device)
-    ids = ids[:n]
-    live = ids < n
-    node = torch.clamp(ids, max=n - 1)
+    ids, node, live = gated_rows(gate)
     if kl_thresholds is None:
         klthr = torch.full((n,), kl_thr, dtype=g.dtype, device=g.device)
     else:
@@ -124,24 +119,34 @@ def core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
                       member_slot=member_slot, count=torch.sum(gate))
 
 
-def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
-                      group, routing,
-                      kl_thresholds: torch.Tensor | None = None,
-                      kc: int = KC) -> CoreInputs:
-    """The compacted rows of THIS rank's gated owner nodes (JAX
-    clustering.py:293-369), under the edge partition.
+def gated_rows(gate: torch.Tensor):
+    """The static compaction of a (rows,) gate (a cumsum scatter, JAX
+    clustering.py:240-252) -> (ids (rows,): the gated rows first, in
+    order, then `rows`, the dump row; the same clamped to a readable row;
+    live (rows,): ids < rows)."""
+    n = gate.shape[0]
+    dest = torch.where(gate, torch.cumsum(gate, dim=0) - 1, n)
+    ids = torch.full((n + 1,), n, dtype=torch.int64, device=gate.device)
+    ids[dest] = torch.arange(n, device=gate.device)
+    ids = ids[:n]
+    return ids, torch.clamp(ids, max=n - 1), ids < n
+
+
+def owner_table(g: GraphState, cfg: PipelineConfig, use_updated: bool,
+                group, routing, kc: int = KC):
+    """THIS rank's owner rows of a clustering round before compaction (JAX
+    clustering.py:293-369), under the edge partition -> (tab (rows, kc)
+    member positions in the received buffer, -1 padded; gate (rows,);
+    states: the received buffer's columns; member_slot (N, K)).
 
     The (N, K) membership table is OR-combined over the group; every
     edge's packed state row [p_sv | p_cov | j_sv | j_cov | prior | xyzr]
     (29 values) rides one all_to_all to its head's owner.  The received
     (D * bucket, 29) buffer is the core's per-edge tensors, read through
     column views, and `tab` holds positions in that buffer.  Owner rows
-    are the interleaved nodes r*D + rank; `ids` are owner rows.  The gated
-    rows are counted on the host (one sync): this schedule is not
-    captured."""
+    are the interleaved nodes r*D + rank, rows = N / D."""
     n, k_tab = g.in_edges.shape
-    d = routing.n_shards
-    rows = n // d
+    rows = n // routing.n_shards
     member = (g.has_updated if use_updated else g.edge_mask) & g.edge_mask
     member_slot = collect.allor(_member_slots(g, member), group)
     recv = collect.route_to_owners(
@@ -164,20 +169,32 @@ def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     count = torch.sum(mem_own, dim=1)
     gate = ((count > cfg.cluster_min_edges - 1)
             & (count < cfg.cluster_max_edges + 1))
+    return tab, gate, cluster_kernel.unpack_states(recv), member_slot
+
+
+def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
+                      group, routing,
+                      kl_thresholds: torch.Tensor | None = None,
+                      kc: int = KC) -> CoreInputs:
+    """The compacted rows of THIS rank's gated owner nodes (owner_table),
+    the gated rows first in owner-row order in a static (N / D, kc)
+    table, as core_inputs compacts them: `ids` are owner rows, N / D past
+    the live count, which stays on the device."""
+    tab, gate, states, member_slot = owner_table(g, cfg, use_updated, group,
+                                                 routing, kc)
+    ids, row, live = gated_rows(gate)
     chi2_thr, kl_thr = cfg.cluster_thresholds(use_updated)
-    ids = torch.nonzero(gate).squeeze(1)
     if kl_thresholds is None:
         klthr = torch.full(ids.shape, kl_thr, dtype=g.dtype, device=g.device)
     else:
         klthr = collect.owner_block_interleaved(kl_thresholds.to(g.dtype),
-                                                group)[ids]
-    return CoreInputs(ids=ids, tab=tab[ids],
-                      states=cluster_kernel.unpack_states(recv),
+                                                group)[row]
+    return CoreInputs(ids=ids, tab=torch.where(live[:, None], tab[row], -1),
+                      states=states,
                       node_xyzr=collect.owner_block_interleaved(g.xyzr,
-                                                                group)[ids],
+                                                                group)[row],
                       klthr=klthr, chi2_thr=chi2_thr, member_slot=member_slot,
-                      count=torch.full((), ids.shape[0], dtype=torch.int64,
-                                       device=g.device))
+                      count=torch.sum(gate))
 
 
 def _expand(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:

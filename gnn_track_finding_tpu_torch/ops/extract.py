@@ -300,24 +300,20 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
     labels: (N,) component labels computed elsewhere (the minimum node
     index of each weak component over the active edges, as the host
     union-find of data/native_loader.py gives them); FastSV on the device
-    when absent, in cca.R_CAP fixed rounds on one device.  cca_rounds is 0
-    when labels are given.
+    when absent, in cca.R_CAP fixed rounds.  cca_rounds is 0 when labels
+    are given.
     group: the edge partition's process group, which FastSV combines its
-    hooks over (JAX extract.py:334-361), in its adaptive loop; everything
-    after the labels is node- and candidate-space work on replicated
-    inputs, the same on every rank."""
+    hooks over (JAX extract.py:334-361); everything after the labels is
+    node- and candidate-space work on replicated inputs, the same on every
+    rank."""
     h = cfg.max_track_hits
     dev = g.device
-    converged = torch.ones((), dtype=torch.bool, device=dev)
-    if labels is not None:
-        rounds = torch.zeros((), dtype=torch.int64, device=dev)
-    elif group is None:
+    if labels is None:
         labels, rounds, converged = cca.connected_components_fixed(
-            g, g.edge_mask & g.active)
+            g, g.edge_mask & g.active, group=group)
     else:
-        labels, n_rounds = cca.connected_components_fastsv(
-            g, g.edge_mask & g.active, group)
-        rounds = torch.full((), n_rounds, dtype=torch.int64, device=dev)
+        rounds = torch.zeros((), dtype=torch.int64, device=dev)
+        converged = torch.ones((), dtype=torch.bool, device=dev)
     mat, size, row_of_node = _candidate_matrix(g, labels, h,
                                                cfg.min_track_hits)
     big_enough = size >= cfg.min_track_hits

@@ -14,13 +14,23 @@ rank of an "edge" group (`edge_group`) holds its own GraphState:
     route each edge's payload to its head node's owner rank (OwnerRouting)
     and gather back only the narrow per-node results.
 
-Where JAX runs one program over a mesh with shard_map, every rank here
-calls the same plain function with its group:
+Where JAX jits one program over a mesh with shard_map (prepare and every
+iteration, edge_shard.py:245-270), every rank here runs the same static
+program with its group: `schedule_sharded` is its body, which reads
+nothing on the host, and `run_sharded` the entry point.  On an NCCL group
+with CUDA tensors, run_sharded captures the body once per (pad bucket,
+routing bucket, group) as one CUDA graph, its collectives inside
+(models/pipeline.CapturedSchedule), and replays it per event; a gloo
+group cannot be captured and runs it eagerly.  The results say which
+(ScheduleResults.path).  An event whose accepted count exceeds the head
+cap, or whose FastSV still changed labels after cca.R_CAP rounds (the
+same flags on every rank), is rerun on every rank by the exact fallback
+(`schedule_sharded_exact`) and counted in pipeline.fallbacks:
 
     g_loc = edge_shard.shard_graph(g, group)
     r_loc = edge_shard.routing_shard(edge_shard.build_owner_routing(g, d),
                                      rank)
-    out = edge_shard.schedule_sharded(g_loc, cfg, group, r_loc)
+    out = edge_shard.run_sharded(g_loc, cfg, group, r_loc)
 """
 
 from __future__ import annotations
@@ -186,11 +196,46 @@ def iteration_sharded(g: GraphState, cfg, i: int, group,
 
 def schedule_sharded(g: GraphState, cfg, group, routing: OwnerRouting
                      ) -> pipeline.ScheduleResults:
-    """The whole schedule edge-partitioned (edge_shard.py:245-270): prepare
-    and every iteration; the accepted candidates are the same on every
-    rank, the graph is the rank's block."""
+    """The whole schedule edge-partitioned (edge_shard.py:245-270), the
+    program body: prepare and every iteration, FastSV in cca.R_CAP fixed
+    rounds, nothing read on the host; the accepted candidates are the same
+    on every rank, the graph is the rank's block."""
     _check_routing(group, routing)
     return pipeline.full_pipeline_results(g, cfg, group, routing)
+
+
+def schedule_sharded_exact(g: GraphState, cfg, group, routing: OwnerRouting
+                           ) -> pipeline.ScheduleResults:
+    """The exact fallback: the host driver edge-partitioned, FastSV in its
+    adaptive loop (one host read per round) and every accepted row pulled,
+    eagerly on every rank."""
+    _check_routing(group, routing)
+    return pipeline.exact_results(pipeline.run_pipeline(
+        g, cfg, host_cca=False, group=group, routing=routing))
+
+
+def captures(g: GraphState, group) -> bool:
+    """Whether run_sharded replays a captured program: on an NCCL group
+    with CUDA tensors.  gloo collectives cannot be captured."""
+    return g.device.type == "cuda" and dist.get_backend(group) == "nccl"
+
+
+def run_sharded(g: GraphState, cfg, group, routing: OwnerRouting
+                ) -> pipeline.ScheduleResults:
+    """The schedule of one event on this rank (its block g and routing):
+    the captured program's replay where `captures`, else the body run
+    eagerly; then one host read of the overflow flags, and the exact
+    fallback on every rank if one is set.  Raises if the capture fails."""
+    _check_routing(group, routing)
+    if captures(g, group):
+        res = pipeline.captured_program(g, cfg, group, routing).replay(
+            g, routing)
+    else:
+        res = schedule_sharded(g, cfg, group, routing)
+    if bool(res.overflow.any()):
+        pipeline.fallbacks += 1
+        res = schedule_sharded_exact(g, cfg, group, routing)
+    return res
 
 
 def edge_group(n: int | None = None):

@@ -68,7 +68,9 @@ def run_batched(graphs: Sequence, cfg, mesh: Mesh | None = None
                 ) -> List[Tuple[int, pipeline.ScheduleResults]]:
     """Run the schedule over a batch of events on the mesh: data rank i
     takes its contiguous slice of the batch, and each of its events runs
-    edge-partitioned over its edge group (edge_shard.schedule_sharded).
+    edge-partitioned over its edge group (edge_shard.run_sharded: the
+    routing built on the host, then on an NCCL group a replay of the
+    rank's captured program).
 
     graphs: the batch's whole GraphStates, on this rank's device.  Returns
     (event index, results) for this rank's events, each graph gathered
@@ -82,7 +84,7 @@ def run_batched(graphs: Sequence, cfg, mesh: Mesh | None = None
         g = graphs[i]
         routing = edge_shard.routing_shard(
             edge_shard.build_owner_routing(g, d), mesh.edge_index)
-        res = edge_shard.schedule_sharded(
+        res = edge_shard.run_sharded(
             edge_shard.shard_graph(g, mesh.edge_group), cfg, mesh.edge_group,
             routing)
         out.append((i, res._replace(

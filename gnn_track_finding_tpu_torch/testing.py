@@ -1,5 +1,6 @@
 """Test support only: synthetic inputs that hold the edge cases of the
-kernels' layouts, and the rank workers of the edge-partitioned tests.
+kernels' layouts, the host-read audit of the captured programs, and the
+rank workers of the edge-partitioned tests.
 
 Nothing in the pipeline imports this module.  The CPU tests
 (tests/test_torch_kernels.py, tests/test_torch_parallel.py), the card-only
@@ -20,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gnn_track_finding_tpu_torch.ops.cluster_kernel import SlotStates
 
@@ -141,6 +143,35 @@ def distinct_tables(seed: int, n: int, k: int, *, dtype=torch.float64,
     return (torch.from_numpy(ok).to(device),
             torch.from_numpy(x).to(device, dtype),
             torch.from_numpy(node_x).to(device, dtype))
+
+
+class HostReads(TorchDispatchMode):
+    """Records every aten op that reads a tensor's values on the host or
+    sizes its output by them (.item / bool(), nonzero, boolean-mask
+    indexing, masked_select, unique, bincount, repeat_interleave with
+    tensor repeats): one such op in a schedule breaks its CUDA-graph
+    capture on the card.  `ops` holds every op seen."""
+
+    NAMES = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
+             "aten.repeat_interleave.Tensor", "aten.bincount")
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.reads = set(), []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = str(func)
+        self.ops.add(name)
+        bool_index = func.overloadpacket in (
+            torch.ops.aten.index, torch.ops.aten.index_put,
+            torch.ops.aten.index_put_) and any(
+            isinstance(i, torch.Tensor) and i.dtype in (torch.bool,
+                                                        torch.uint8)
+            for i in (args[1] if len(args) > 1 else ()) if i is not None)
+        if name.startswith(self.NAMES) or "unique" in name or bool_index:
+            self.reads.append(name)
+        return func(*args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -320,14 +351,16 @@ def _job_stages(ctx: RankContext, staged: dict, prepared: dict, meta: dict,
 
 def _graph(ctx: RankContext, event: dict, dtype=torch.float64):
     """(GraphState, config) of a toy event {"toy": (tracks, seed), "cfg":
-    {...}} or an event cache {"npz": path}, on the rank's device."""
+    {...}, optionally "gen": {generate_event's other arguments}} or an
+    event cache {"npz": path}, on the rank's device."""
     from gnn_track_finding_tpu_torch.config import PipelineConfig
     from gnn_track_finding_tpu_torch.data.event_cache import load_npz
     from gnn_track_finding_tpu_torch.graph.build import build_graph_state
     from gnn_track_finding_tpu_torch.models import toymc
     if "toy" in event:
         tracks, seed = event["toy"]
-        ev = toymc.generate_event(num_tracks=tracks, seed=seed)
+        ev = toymc.generate_event(num_tracks=tracks, seed=seed,
+                                  **event.get("gen", {}))
         cfg = PipelineConfig(**event["cfg"])
         return build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs,
                                  cfg, device=ctx.device, dtype=dtype), cfg
@@ -344,9 +377,38 @@ def _sync(ctx: RankContext) -> None:
         torch.cuda.synchronize(ctx.device)
 
 
+def _schedule_numpy(res, group) -> dict:
+    """A ScheduleResults as numpy, the graph gathered whole."""
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
+    return {"acc_count": res.acc_count.tolist(),
+            "acc_nodes": res.acc_nodes.cpu().numpy(),
+            "acc_pvals": res.acc_pvals.cpu().numpy(),
+            "cca_rounds": res.cca_rounds.tolist(),
+            "overflow": res.overflow.tolist(), "path": res.path,
+            "graph": edge_shard.gather_graph(res.graph, group).to_numpy()}
+
+
+def bitwise_fields(a, b) -> list:
+    """The fields of two ScheduleResults (graph included) that differ bit
+    for bit."""
+    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    pairs = [(k, getattr(a, k), getattr(b, k)) for k in a._fields
+             if k not in ("graph", "path")]
+    pairs += [(k, getattr(a.graph, k), getattr(b.graph, k))
+              for k in tensor_fields()]
+    bad = []
+    for k, x, y in pairs:
+        if x.dtype in bits and x.dtype == y.dtype:
+            x, y = x.view(bits[x.dtype]), y.view(bits[y.dtype])
+        if x.shape != y.shape or not torch.equal(x, y):
+            bad.append(k)
+    return bad
+
+
 def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
                   check_kernels: bool = False,
-                  kernel_inputs: bool = False) -> dict:
+                  kernel_inputs: bool = False, exact: bool = False) -> dict:
     """schedule_sharded over the default group on one event: the gathered
     final state and accepted candidates, the kernels' launches in the
     first run, the wall per run (reps runs, each ended by a barrier and
@@ -354,7 +416,9 @@ def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
     both kernels against their plain versions on this rank's owner rows:
     the clustering core in both rounds, the distinct counts of
     iteration 2's first prior_reweight pass, whose inputs rank 0 returns
-    with kernel_inputs."""
+    with kernel_inputs; with `exact`, the exact fallback's results
+    (FastSV's adaptive loop) and the fields in which they differ from the
+    schedule's bit for bit."""
     import torch.distributed as dist
 
     from gnn_track_finding_tpu_torch.ops import (cluster_kernel, collect,
@@ -385,6 +449,10 @@ def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
     out["cca_rounds"] = res.cca_rounds.tolist()
     out["graph"] = edge_shard.gather_graph(res.graph, group).to_numpy()
     out["bucket"] = r.bucket
+    if exact:
+        ex = edge_shard.schedule_sharded_exact(g, cfg, group, r)
+        out["exact"] = _schedule_numpy(ex, group)
+        out["exact_differs"] = bitwise_fields(res, ex)
     if check_kernels:
         out["kernel_checks"], inputs = _owner_kernel_checks(g, cfg, group, r)
         if kernel_inputs and ctx.rank == 0:
@@ -409,18 +477,16 @@ def _owner_kernel_checks(g, cfg, group, r):
         inputs[name] = {
             "packed": cluster_kernel.pack_states(x.states).cpu().numpy(),
             **{k: getattr(x, k).cpu().numpy()
-               for k in ("tab", "node_xyzr", "klthr")},
+               for k in ("tab", "node_xyzr", "klthr", "count")},
             "chi2_thr": x.chi2_thr}
-        args = (x.states, x.tab, x.node_xyzr, x.klthr)
+        args = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
         got = cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr, cfg=cfg)
         want = cluster_kernel.cluster_core_plain(*args, chi2_thr=x.chi2_thr,
                                                  cfg=cfg)
-        same = all(torch.equal(a, b) if a.dtype == torch.bool else
-                   torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
-                   and torch.equal(torch.isnan(a), torch.isnan(b))
-                   for a, b in zip(got, want))
-        return {"rows": int(x.tab.shape[0]), "found": int(got[0].sum()),
-                "bitwise": bool(same), "kc": int(x.tab.shape[1])}
+        return {"rows": int(x.tab.shape[0]), "live_rows": int(x.count),
+                "found": int(got[0].sum()),
+                "bitwise": not _core_differs(got, want),
+                "kc": int(x.tab.shape[1])}
 
     gp = pipeline.prepare(g, cfg, group)
     out = {"cluster_seed": core("cluster_seed", clustering.owner_core_inputs(
@@ -442,16 +508,182 @@ def _owner_kernel_checks(g, cfg, group, r):
     return out, inputs
 
 
+def _core_differs(got, want) -> bool:
+    """Whether two cluster_core outputs differ (NaN where NaN)."""
+    return not all(torch.equal(a, b) if a.dtype == torch.bool else
+                   torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                   and torch.equal(torch.isnan(a), torch.isnan(b))
+                   for a, b in zip(got, want))
+
+
+def _owner_rows_check(g, cfg, use_updated: bool, group, r) -> dict:
+    """The static owner table of a clustering round against the exact
+    compaction of the same gated rows (nonzero, read on the host): ids,
+    count, rows and the plain core on each."""
+    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                                 collect)
+    x = clustering.owner_core_inputs(g, cfg, use_updated, group, r)
+    tab, gate, states, _ = clustering.owner_table(g, cfg, use_updated,
+                                                  group, r)
+    ids = torch.nonzero(gate).squeeze(1)
+    n, rows = ids.shape[0], gate.shape[0]
+    xyzr = collect.owner_block_interleaved(g.xyzr, group)[ids]
+    klthr = torch.full(ids.shape, cfg.cluster_thresholds(use_updated)[1],
+                       dtype=g.dtype, device=g.device)
+    exact = cluster_kernel.cluster_core_plain(
+        states, tab[ids], xyzr, klthr, chi2_thr=x.chi2_thr, cfg=cfg)
+    static = cluster_kernel.cluster_core_plain(
+        x.states, x.tab, x.node_xyzr, x.klthr, x.count, chi2_thr=x.chi2_thr,
+        cfg=cfg)
+    return {"rows": rows, "count": int(x.count), "exact_rows": n,
+            "ids": torch.equal(x.ids[:n], ids)
+            and bool((x.ids[n:] == rows).all()),
+            "tab": torch.equal(x.tab[:n], tab[ids])
+            and bool((x.tab[n:] == -1).all()),
+            "node_xyzr": torch.equal(x.node_xyzr[:n], xyzr),
+            "klthr": torch.equal(x.klthr[:n], klthr),
+            "found": int(exact[0].sum()),
+            "core": not _core_differs([v[:n] for v in static], exact),
+            "core_dead_rows": not any(bool(v[n:].any()) for v in static)}
+
+
+def _job_static_parts(ctx: RankContext, event: dict) -> dict:
+    """The sharded schedule walked stage by stage on this rank: before each
+    clustering round, its static owner table against the exact compaction
+    (_owner_rows_check); at each extraction, fixed-round FastSV against
+    the adaptive loop over the group (labels, rounds, convergence)."""
+    from gnn_track_finding_tpu_torch.graph import cca
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
+    group = edge_shard.edge_group()
+    g_full, cfg = _graph(ctx, event)
+    g, r = _sharded(ctx, g_full, group)
+    g = pipeline.prepare(g, cfg, group)
+    out = {"owner": [], "fastsv": []}
+    for i in range(1, cfg.num_iterations + 1):
+        if i % 2:
+            out["owner"].append(_owner_rows_check(g, cfg, i > 1, group, r))
+        s = pipeline.stage_step(g, cfg, i, None, group, r)
+        ok = s.edge_mask & s.active
+        labels, rounds = cca.connected_components_fastsv(s, ok, group)
+        fixed, f_rounds, converged = cca.connected_components_fixed(
+            s, ok, group=group)
+        out["fastsv"].append({"labels": torch.equal(fixed, labels),
+                              "rounds": rounds, "fixed_rounds": int(f_rounds),
+                              "converged": bool(converged)})
+        g, _ = pipeline.extract_step(s, cfg, i, group, r)
+    return out
+
+
+def _job_fallback(ctx: RankContext, event: dict, limit: str) -> dict:
+    """run_sharded with the head cap ("cap") or FastSV's rounds ("rounds")
+    cut one below what the event needs: the body's overflow flags on this
+    rank, the fallbacks counted, and the fallback's results beside the
+    uncut run's and the exact schedule's; the path of the uncut run, the
+    group's part of its program key and whether run_sharded captures."""
+    from gnn_track_finding_tpu_torch.graph import cca
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import extract
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
+    group = edge_shard.edge_group()
+    g_full, cfg = _graph(ctx, event)
+    g, r = _sharded(ctx, g_full, group)
+    full = edge_shard.run_sharded(g, cfg, group, r)
+    out = {"full": _schedule_numpy(full, group),
+           "exact": _schedule_numpy(
+               edge_shard.schedule_sharded_exact(g, cfg, group, r), group),
+           "key": list(pipeline.program_key(g, cfg, group, r)[-4:]),
+           "captures": edge_shard.captures(g, group)}
+    mod, name, need = ((extract, "ACC_PULL_CAP", full.acc_count)
+                       if limit == "cap" else
+                       (cca, "R_CAP", full.cca_rounds))
+    keep = getattr(mod, name)
+    setattr(mod, name, int(need.max()) - 1)
+    try:
+        out["overflow"] = edge_shard.schedule_sharded(
+            g, cfg, group, r).overflow.tolist()
+        before = pipeline.fallbacks
+        fell = edge_shard.run_sharded(g, cfg, group, r)
+        out["fallbacks"] = pipeline.fallbacks - before
+    finally:
+        setattr(mod, name, keep)
+    out["fallback"] = _schedule_numpy(fell, group)
+    return out
+
+
+def _job_captured(ctx: RankContext, event: dict, reps: int = 5) -> dict:
+    """run_sharded on one event where it captures (an NCCL group on the
+    card): its path; the fields in which its first call (capture and
+    replay), a replay and a replay under torch.cuda.set_sync_debug_mode
+    ("error") differ bit for bit from the eager body's run; the first
+    call's results, graph gathered; the per-event wall of run_sharded and
+    of the eager body, best of `reps` in turns (each ended by the
+    candidates' readback); capture and instantiate seconds, the graph
+    pool, the kernels' launches per replay, the collectives of the eager
+    run (one run's census) and of the first call (warm-up and capture),
+    and the fallbacks."""
+    import torch.distributed as dist
+
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import collect
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
+    group = edge_shard.edge_group()
+    g_full, cfg = _graph(ctx, event)
+    g, r = _sharded(ctx, g_full, group)
+    pipeline.clear_programs()
+    before = pipeline.fallbacks
+    with collect.census() as census:
+        eager = edge_shard.schedule_sharded(g, cfg, group, r)
+    with collect.census() as first_census:
+        first = edge_shard.run_sharded(g, cfg, group, r)
+    prog = pipeline.captured_program(g, cfg, group, r)
+    replay = edge_shard.run_sharded(g, cfg, group, r)
+    _sync(ctx)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        quiet = prog.replay(g, r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = {"path": first.path, "programs": len(pipeline._PROGRAMS),
+           "differs": {"first": bitwise_fields(eager, first),
+                       "replay": bitwise_fields(eager, replay),
+                       "sync_debug": bitwise_fields(eager, quiet)},
+           "result": _schedule_numpy(first, group),
+           "capture_s": prog.capture_seconds,
+           "instantiate_s": prog.instantiate_seconds,
+           "pool_bytes": prog.pool_bytes, "launches": prog.launches,
+           "census": census, "first_call_collectives": len(first_census),
+           "bucket": r.bucket, "walls": {"captured": [], "eager": []}}
+    runs = {"captured": lambda: edge_shard.run_sharded(g, cfg, group, r),
+            "eager": lambda: edge_shard.schedule_sharded(g, cfg, group, r)}
+    for _ in range(reps):
+        for name, run in runs.items():
+            dist.barrier(group)
+            _sync(ctx)
+            t0 = time.perf_counter()
+            run().acc_count.tolist()
+            out["walls"][name].append(time.perf_counter() - t0)
+    out["fallbacks"] = pipeline.fallbacks - before
+    return out
+
+
 def _job_batched(ctx: RankContext, events: list, shape) -> dict:
-    """run_batched over a mesh of `shape`: this rank's events' gathered
-    states and candidates."""
+    """run_batched over a mesh of `shape` (the programs cleared first):
+    this rank's events' gathered states and candidates, each with its
+    path and the number of programs cached after the batch."""
+    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.parallel import mesh as pmesh
     graphs, cfgs = zip(*(_graph(ctx, e) for e in events))
-    out = pmesh.run_batched(list(graphs), cfgs[0], pmesh.make_mesh(shape))
-    return {i: {"acc_count": res.acc_count.tolist(),
-                "acc_nodes": res.acc_nodes.cpu().numpy(),
-                "acc_pvals": res.acc_pvals.cpu().numpy(),
-                "graph": res.graph.to_numpy()} for i, res in out}
+    pipeline.clear_programs()
+    out = {}
+    for i, res in pmesh.run_batched(list(graphs), cfgs[0],
+                                    pmesh.make_mesh(shape)):
+        out[i] = {"acc_count": res.acc_count.tolist(),
+                  "acc_nodes": res.acc_nodes.cpu().numpy(),
+                  "acc_pvals": res.acc_pvals.cpu().numpy(),
+                  "graph": res.graph.to_numpy(), "path": res.path,
+                  "programs": len(pipeline._PROGRAMS)}
+    return out
 
 
 def _job_multihost(ctx: RankContext, events: list, num_events: int) -> dict:
@@ -466,13 +698,29 @@ def _job_multihost(ctx: RankContext, events: list, num_events: int) -> dict:
             "report": multihost.scaling_report(list(graphs), cfgs[0])}
 
 
+def _job_audit(ctx: RankContext, event: dict) -> dict:
+    """schedule_sharded over the default group under HostReads: the ops
+    that read the device on the host (none may), and whether the audit
+    saw the schedule's collectives and kernels' plain versions."""
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
+    group = edge_shard.edge_group()
+    g_full, cfg = _graph(ctx, event)
+    g, r = _sharded(ctx, g_full, group)
+    mode = HostReads()
+    with mode:
+        edge_shard.schedule_sharded(g, cfg, group, r)
+    return {"reads": sorted(set(mode.reads)), "ops": sorted(mode.ops)}
+
+
 def _job_sequence(ctx: RankContext, jobs: list) -> list:
     """Several jobs in one process group, in turn: [(job, params), ...]."""
     return [JOBS[name](ctx, **params) for name, params in jobs]
 
 
-JOBS = {"collect": _job_collect, "stages": _job_stages,
-        "schedule": _job_schedule, "batched": _job_batched,
+JOBS = {"collect": _job_collect, "stages": _job_stages, "audit": _job_audit,
+        "schedule": _job_schedule, "static_parts": _job_static_parts,
+        "fallback": _job_fallback, "captured": _job_captured,
+        "batched": _job_batched,
         "multihost": _job_multihost, "sequence": _job_sequence}
 
 

@@ -7,7 +7,8 @@ CCA labels, the reference digest), and the calibrated path (the clustering
 kernel under the runner's LUT thresholds, a calibrated toy run against the
 same run on the CPU), and the edge-partitioned schedule on the card (2
 gloo ranks on one card, 1 NCCL rank, the clustering kernel on routed
-owner rows).
+owner rows, the NCCL rank's schedule captured as one CUDA graph and
+replayed by run_sharded and run_batched).
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -317,16 +318,26 @@ def test_calibrated_toy_run_on_the_card_matches_the_cpu(cuda):
 def sharded_volume7(tmp_path_factory):
     """schedule_sharded on volume 7 at float64 over 2 gloo ranks on
     cuda:0 and over 1 NCCL rank (spawned processes; the kernels are built
-    here first, so the ranks load them), and the single-device run."""
+    here first, so the ranks load them), and the single-device run.  The
+    NCCL rank also runs the captured program (runs["nccl_captured"]) and
+    run_batched on a (1, 1) mesh over volume 7 twice
+    (runs["nccl_batched"])."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from gnn_track_finding_tpu_torch import _build
     _build.library()
     root = tmp_path_factory.mktemp("sharded")
-    runs = {backend: testing.spawn_ranks(
-        "schedule", world, root / backend, backend=backend, device="cuda:0",
-        event={"npz": str(VOL7_NPZ)}, check_kernels=True).join()
-        for backend, world in (("gloo", 2), ("nccl", 1))}
+    event = {"npz": str(VOL7_NPZ)}
+    schedule = dict(event=event, check_kernels=True)
+    gloo = testing.spawn_ranks("schedule", 2, root / "gloo", backend="gloo",
+                               device="cuda:0", **schedule)
+    nccl = testing.spawn_ranks(
+        "sequence", 1, root / "nccl", backend="nccl", device="cuda:0",
+        jobs=[("schedule", schedule), ("captured", dict(event=event, reps=1)),
+              ("batched", dict(events=[event] * 2, shape=(1, 1)))])
+    runs = {"gloo": gloo.join()}
+    (seq,) = nccl.join()
+    runs.update(nccl=[seq[0]], nccl_captured=seq[1], nccl_batched=seq[2])
     ref = pipeline.full_pipeline_results(
         _volume7(torch.device("cuda"), torch.float64), CFG)
     return runs, ref
@@ -366,6 +377,44 @@ def test_kernels_on_routed_owner_rows_match_plain(sharded_volume7, backend):
         checks = o["kernel_checks"]
         assert checks["cluster_seed"]["found"] > 0
         assert all(c["bitwise"] for c in checks.values()), checks
+
+
+@pytest.mark.gpu
+def test_nccl_rank_replays_the_captured_sharded_schedule(sharded_volume7):
+    """The NCCL rank's run_sharded captures its schedule as one CUDA graph
+    (collectives and both kernels inside): its first call, a replay and a
+    replay under sync debug mode "error" are bitwise the eager body's run,
+    and the results the single-device run's ([1055, 110, 2]); no
+    fallback."""
+    runs, ref = sharded_volume7
+    cap = runs["nccl_captured"]
+    assert cap["path"] == "captured" and cap["programs"] == 1
+    assert cap["differs"] == {"first": [], "replay": [], "sync_debug": []}
+    out = cap["result"]
+    assert out["acc_count"] == ref.acc_count.tolist() == [1055, 110, 2]
+    np.testing.assert_array_equal(out["acc_nodes"], ref.acc_nodes.cpu().numpy())
+    np.testing.assert_array_equal(out["acc_pvals"], ref.acc_pvals.cpu().numpy())
+    assert not testing.states_differ(ref.graph.to_numpy(), out["graph"],
+                                     rtol=0.0)
+    assert all(n > 0 for n in cap["launches"].values()), cap["launches"]
+    assert cap["first_call_collectives"] == 2 * len(cap["census"])
+    assert cap["fallbacks"] == 0
+
+
+@pytest.mark.gpu
+def test_run_batched_replays_one_program_per_nccl_rank(sharded_volume7):
+    """run_batched on a (1, 1) NCCL mesh, volume 7 twice: one program
+    captured, each event a replay bitwise the single-device run."""
+    runs, ref = sharded_volume7
+    got = runs["nccl_batched"]
+    assert sorted(got) == [0, 1]
+    for o in got.values():
+        assert o["path"] == "captured" and o["programs"] == 1
+        assert o["acc_count"] == ref.acc_count.tolist()
+        np.testing.assert_array_equal(o["acc_nodes"],
+                                      ref.acc_nodes.cpu().numpy())
+        assert not testing.states_differ(ref.graph.to_numpy(), o["graph"],
+                                         rtol=0.0)
 
 
 def _bitwise_diff(a, b):

@@ -7,7 +7,11 @@ rendezvous under the test's tmp dir, a 60 s collective timeout, a join
 timeout that fails the test); their workers live in
 gnn_track_finding_tpu_torch/testing.py, which imports no JAX.  Each world
 is started once per module and runs its jobs in turn while this process
-computes the JAX references.
+computes the JAX references.  The schedule's static program (FastSV in
+fixed rounds, the static owner table, no host read) is held here against
+JAX's schedule_sharded, the single-device port, the exact fallback's
+adaptive loop and compaction, and the host-read audit; no test here
+compiles another JAX program, and every rank job rides in those worlds.
 
 Bars: masks, integers, labels and accepted candidates are exact.  Against
 the port's single-device run the sharded states are bitwise, except the
@@ -34,9 +38,11 @@ from gnn_track_finding_tpu.parallel import edge_shard as jax_edge_shard
 
 from gnn_track_finding_tpu_torch import testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
+from gnn_track_finding_tpu_torch.graph import cca
 from gnn_track_finding_tpu_torch.graph import state as tstate
 from gnn_track_finding_tpu_torch.graph.build import build_graph_state
 from gnn_track_finding_tpu_torch.models import pipeline
+from gnn_track_finding_tpu_torch.ops import clustering
 from gnn_track_finding_tpu_torch.parallel import edge_shard, mesh, multihost
 
 CFG_KW = dict(node_bucket=64, edge_bucket=256)
@@ -46,6 +52,8 @@ SCHEDULE_TOY = (20, 5)            # tracks, seed: test_edge_shard.py:202
 VOL7_NPZ = (Path(__file__).resolve().parents[1] / ".event_cache"
             / "event_fafb3309e4598e9b.npz")
 BATCH = [(8, seed) for seed in range(4)]          # test_parallel.py:17
+# a toy whose clustering rounds gate owner rows in both rounds (112 and 3)
+DENSE = {"toy": (50, 2), "cfg": CFG_KW, "gen": {"edge_dphi_window": 0.2}}
 # per-node float sums taken in another order than XLA's, and the JAX fit's
 # p-values (tests/test_torch_stages.py, tests/test_torch_pipeline.py)
 LOOSER = {"grad_stats": 1e-9, "upd_weight": 1e-9, "merged_cov": 1e-9}
@@ -104,15 +112,21 @@ def worlds(tmp_path_factory):
             ("stages", dict(staged=_arrays(staged),
                             prepared=_arrays(prepared), meta=_meta(jg),
                             cfg=CFG_KW)),
-            ("schedule", dict(event=_toy(*SCHEDULE_TOY))),
-            ("schedule", dict(event={"npz": vol7}))]),
+            ("schedule", dict(event=_toy(*SCHEDULE_TOY), exact=True)),
+            ("schedule", dict(event={"npz": vol7})),
+            ("static_parts", dict(event=DENSE)),
+            ("audit", dict(event=DENSE)),
+            ("fallback", dict(event=_toy(*SCHEDULE_TOY), limit="cap")),
+            ("fallback", dict(event=_toy(*SCHEDULE_TOY), limit="rounds"))]),
         4: testing.spawn_ranks("sequence", 4, root / "w4",
                                timeout=JOIN_TIMEOUT, jobs=[
-            ("schedule", dict(event=_toy(*SCHEDULE_TOY))),
+            ("schedule", dict(event=_toy(*SCHEDULE_TOY), exact=True)),
             ("batched", dict(events=[_toy(*e) for e in BATCH],
                              shape=(2, 2))),
             ("multihost", dict(events=[_toy(*e) for e in BATCH],
-                               num_events=10))])}
+                               num_events=10)),
+            ("static_parts", dict(event=DENSE)),
+            ("audit", dict(event=DENSE))])}
     ref = {"prepared": prepared, "staged": staged}
     m2 = jax_edge_shard.edge_mesh(2)
     r2 = jax_edge_shard.build_owner_routing(jg, 2)
@@ -132,13 +146,19 @@ def worlds(tmp_path_factory):
             JCFG, m, jax_edge_shard.build_owner_routing(sg, d))(
             jax_edge_shard.shard_graph(sg, m))
     out = {d: h.join() for d, h in handles.items()}
-    w2 = out[2]
+    w2, w4 = out[2], out[4]
     return {"ref": ref, "collect1": out[1],
             "collect2": [r[0] for r in w2], "stages": w2[0][1],
             "schedule2": w2[0][2], "vol7": w2[0][3],
-            "schedule4": out[4][0][0],
-            "batched": {k: v for r in out[4] for k, v in r[1].items()},
-            "multihost": [r[2] for r in out[4]]}
+            "schedule4": w4[0][0],
+            "batched": {k: v for r in w4 for k, v in r[1].items()},
+            "multihost": [r[2] for r in w4],
+            "exact_differs2": [r[2]["exact_differs"] for r in w2],
+            "exact_differs4": [r[0]["exact_differs"] for r in w4],
+            "static2": [r[4] for r in w2], "static4": [r[3] for r in w4],
+            "audit2": [r[5] for r in w2], "audit4": [r[4] for r in w4],
+            "fallback_cap": [r[6] for r in w2],
+            "fallback_rounds": [r[7] for r in w2]}
 
 
 @pytest.mark.parametrize("d", [2, 4, 8])
@@ -347,3 +367,111 @@ def test_mesh_event_slices_and_single_process_initialize():
     assert mesh.event_slice(4, 3, 4) == (3, 4)
     multihost.initialize()               # one process: a no-op
     assert not torch.distributed.is_initialized()
+
+
+def _single_device_results(out, ref):
+    """A rank's results (numpy) equal the port's single-device
+    ScheduleResults: candidates, FastSV rounds, the gathered state bitwise
+    but grad_stats' variances."""
+    n = ref.acc_count.tolist()
+    assert out["acc_count"] == n
+    assert out["cca_rounds"] == ref.cca_rounds.tolist()
+    for it, k in enumerate(n):
+        np.testing.assert_array_equal(out["acc_nodes"][it, :k],
+                                      ref.acc_nodes[it, :k].numpy())
+        np.testing.assert_array_equal(out["acc_pvals"][it, :k],
+                                      ref.acc_pvals[it, :k].numpy())
+    bad = testing.states_differ(ref.graph.to_numpy(), out["graph"], rtol=0.0)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_schedule_sharded_reads_nothing_on_the_host(worlds, d):
+    """The whole of schedule_sharded (prepare, three iterations) on every
+    rank under testing.HostReads: no op reads the device on the host,
+    and the audit saw the collectives, the scatters and the cumsums."""
+    for rank, a in enumerate(worlds[f"audit{d}"]):
+        assert a["reads"] == [], (rank, a["reads"])
+        assert {"c10d.allreduce_.default", "c10d.alltoall_base_.default",
+                "c10d._allgather_base_.default", "aten.scatter_reduce.two",
+                "aten.cumsum.default"} <= set(a["ops"]), rank
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_schedule_sharded_equals_the_exact_adaptive_run(worlds, d):
+    """The static program against the exact fallback's eager run (FastSV's
+    adaptive loop, every accepted row pulled): bit for bit on every rank,
+    its results and its block of the final state."""
+    assert worlds[f"exact_differs{d}"] == [[]] * d
+    out = worlds[f"schedule{d}"]
+    ex = out["exact"]
+    assert ex["path"] == "exact" and not any(ex["overflow"])
+    assert ex["acc_count"] == out["acc_count"]
+    assert ex["cca_rounds"] == out["cca_rounds"]
+    np.testing.assert_array_equal(ex["acc_nodes"], out["acc_nodes"])
+    np.testing.assert_array_equal(ex["acc_pvals"], out["acc_pvals"])
+    bad = testing.states_differ(out["graph"], ex["graph"], rtol=0.0)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_fixed_round_fastsv_over_the_group_equals_the_adaptive_loop(
+        worlds, d):
+    """At each extraction of the sharded schedule, on every rank: the
+    fixed-round FastSV's labels and rounds are the adaptive loop's, and it
+    reports convergence."""
+    for rank, parts in enumerate(worlds[f"static{d}"]):
+        for it, f in enumerate(parts["fastsv"]):
+            assert f["labels"] and f["converged"], (rank, it, f)
+            assert f["fixed_rounds"] == f["rounds"], (rank, it, f)
+            assert 2 <= f["rounds"] <= cca.R_CAP
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_static_owner_table_equals_the_exact_compaction(worlds, d):
+    """Both clustering rounds on every rank: the static (N / D)-row owner
+    table's live rows are the exact compaction's (nonzero) in order, the
+    dump row past the count, the device count the exact row count, and
+    the plain core on the static table equals the plain core on the exact
+    rows (rows past the count not found).  Over the ranks the live rows
+    add up to the single-device gate's."""
+    parts = worlds[f"static{d}"]
+    for rank, p in enumerate(parts):
+        for rnd, o in enumerate(p["owner"]):
+            assert o["count"] == o["exact_rows"], (rank, rnd, o)
+            assert all(o[k] for k in ("ids", "tab", "node_xyzr", "klthr",
+                                      "core", "core_dead_rows")), (rank, o)
+    g = pipeline.prepare(testing._graph(testing.RankContext(
+        0, 1, torch.device("cpu")), DENSE)[0], CFG)
+    seed = int(clustering.core_inputs(g, CFG, False).count)
+    for i in (1, 2):
+        g, _ = pipeline.iteration(g, CFG, i)
+    updated = int(clustering.core_inputs(g, CFG, True).count)
+    assert seed > 0 and updated > 0
+    assert [sum(p["owner"][rnd]["count"] for p in parts)
+            for rnd in (0, 1)] == [seed, updated]
+    assert sum(p["owner"][0]["found"] for p in parts) > 0
+
+
+@pytest.mark.parametrize("limit", ["cap", "rounds"])
+def test_sharded_overflow_takes_the_exact_fallback(worlds, limit):
+    """The head cap or FastSV's rounds cut one below what the toy needs, at
+    D = 2: the overflow flags are set, the same on every rank; run_sharded
+    counts one fallback and returns the exact run's results, which are the
+    uncut run's candidates.  Over gloo run_sharded does not capture (its
+    path is eager) and the program key holds the group's size, the rank,
+    the backend and the routing bucket."""
+    ranks = worlds[f"fallback_{limit}"]
+    flags = [o["overflow"] for o in ranks]
+    assert any(flags[0]) and flags == [flags[0]] * len(ranks)
+    ref = pipeline.full_pipeline_results(_port_graph(*SCHEDULE_TOY), CFG)
+    for rank, o in enumerate(ranks):
+        assert o["fallbacks"] == 1
+        assert o["full"]["path"] == "eager" and not o["captures"]
+        assert o["key"] == [2, rank, "gloo", worlds["schedule2"]["bucket"]]
+        fell, ex = o["fallback"], o["exact"]
+        assert fell["path"] == ex["path"] == "exact"
+        _single_device_results(fell, ref)
+        _single_device_results(o["full"], ref)
+        assert fell["cca_rounds"] == ex["cca_rounds"]
+        assert not testing.states_differ(ex["graph"], fell["graph"], rtol=0.0)

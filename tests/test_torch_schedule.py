@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from gnn_track_finding_tpu.config import PipelineConfig as JaxConfig
 from gnn_track_finding_tpu.graph.build import build_graph_state as jax_build
 from gnn_track_finding_tpu.models import pipeline as jax_pipeline
 from gnn_track_finding_tpu.models import toymc
 
+from gnn_track_finding_tpu_torch import testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
 from gnn_track_finding_tpu_torch.graph import cca
@@ -183,32 +183,6 @@ def test_fixed_round_fastsv_equals_the_adaptive_loop(event):
         assert not bool(short) and int(short_rounds) == rounds - 1
 
 
-class _HostReads(TorchDispatchMode):
-    """Records every aten op that reads a tensor's values on the host or
-    sizes its output by them."""
-
-    NAMES = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
-             "aten.repeat_interleave.Tensor", "aten.bincount")
-
-    def __init__(self):
-        super().__init__()
-        self.ops, self.reads = set(), []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = str(func)
-        self.ops.add(name)
-        bool_index = func.overloadpacket in (
-            torch.ops.aten.index, torch.ops.aten.index_put,
-            torch.ops.aten.index_put_) and any(
-            isinstance(i, torch.Tensor) and i.dtype in (torch.bool,
-                                                        torch.uint8)
-            for i in (args[1] if len(args) > 1 else ()) if i is not None)
-        if name.startswith(self.NAMES) or "unique" in name or bool_index:
-            self.reads.append(name)
-        return func(*args, **kwargs)
-
-
 def test_schedule_reads_nothing_on_the_host():
     """full_pipeline_packed (prepare, three iterations, the packing) on a
     toy: no aten op that reads device values on the host or sizes its
@@ -216,14 +190,14 @@ def test_schedule_reads_nothing_on_the_host():
     masked_select, unique, bincount, repeat_interleave with tensor
     repeats)."""
     g = _toy(7, with_jax=False)
-    mode = _HostReads()
+    mode = testing.HostReads()
     with mode:
         pipeline.full_pipeline_packed(g, CFG)
     assert not mode.reads, sorted(set(mode.reads))
     # the audit sees the schedule's ops, the kernels' plain versions too
     assert {"aten.scatter_reduce.two", "aten.cumsum.default"} <= mode.ops
     # ... and catches what the host driver does
-    mode = _HostReads()
+    mode = testing.HostReads()
     with mode:
         extract.accepted_rows(extract.extract_candidates(
             pipeline.prepare(g, CFG), CFG))
@@ -275,7 +249,6 @@ def test_cluster_core_plain_rows_past_the_count_are_not_found():
     """Rows at or past the live count come out not found, with zero
     outputs, whatever their entries; the live rows are the uncounted
     call's."""
-    from gnn_track_finding_tpu_torch import testing
     inputs = testing.cluster_rows(5, 33, 16)
     full = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=1.0, cfg=CFG)
     count = torch.tensor(20)
