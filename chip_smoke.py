@@ -113,7 +113,15 @@ program run op by op), so their rows stay comparable with earlier runs:
      copies of the full event ingested through data/prefetch.prefetch
      (the first stream captures while the prefetch thread works); and no
      event falls back to the host driver.  Its record is printed as one
-     JSON line.
+     JSON line;
+ 12. the bench (`python -m gnn_track_finding_tpu_torch.bench`) as a
+     subprocess at float32 and at float64: exit code 0, its two metric
+     lines (names, keys, positive values), its kernel gate passed (both
+     kernels against their plain versions, the float64 counts), both
+     kernels launched, the card's name and power limit beside the
+     numbers; and its captured message-passing loop (N_REP replays of one
+     captured extrapolation_stage) bitwise the same number of eager
+     stage calls at float64.  Its record is printed as one JSON line.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -313,40 +321,21 @@ def distinct_bound(ok, x) -> dict:
     return bound(float(n_bytes), float(n_ops), x.dtype)
 
 
-def core_case(label, inputs, cfg, dtype, chi2_thr, check_found=True):
-    """The kernel against the plain version: bitwise at float64, the
-    flag band at float32, over every row (those past a live count in
-    inputs[4] come out not found from both).  Returns the largest |diff|."""
-    from gnn_track_finding_tpu_torch.ops import cluster_kernel
-    want = cluster_kernel.cluster_core_plain(*inputs, chi2_thr=chi2_thr,
-                                             cfg=cfg)
-    got = cluster_kernel.cluster_core(*inputs, chi2_thr=chi2_thr, cfg=cfg)
+def core_case(label, inputs, cfg, chi2_thr, check_found=True):
+    """The kernel against the plain version with the bench's gate
+    (bench.compare_cluster: bitwise at float64, the flag band at float32),
+    over every row (those past a live count in inputs[4] come out not
+    found from both).  Returns the largest |diff|."""
+    from gnn_track_finding_tpu_torch import bench
+    s = bench.compare_cluster(inputs, chi2_thr=chi2_thr, cfg=cfg,
+                              require_merged=check_found, label=label)
     torch.cuda.synchronize()
-    f_k, f_p = got[0], want[0]
-    rows, kc = inputs[1].shape
-    live = int(inputs[4]) if len(inputs) > 4 else rows
-    flips = int((f_k != f_p).sum())
-    both = f_k & f_p
-    diff = max(float((a[both] - b[both]).abs().nan_to_num().max())
-               if both.any() else 0.0
-               for a, b in zip(got[1:4], want[1:4]))
-    print(f"{label}: {live} live rows of {rows} x kc={kc}, found {int(f_k.sum())} "
-          f"(plain {int(f_p.sum())}), flag flips {flips}, deact diffs "
-          f"{int((got[4] != want[4]).sum())}, max |diff| of merged "
-          f"values {diff:.3e}")
-    check(both.any() or not check_found, f"{label}: no merged rows")
-    if dtype == torch.float64:
-        check(flips == 0 and torch.equal(got[4], want[4]),
-              f"{label}: float64 flags differ")
-        for a, b in zip(got[1:4], want[1:4]):
-            torch.testing.assert_close(a, b, rtol=0, atol=0,
-                                       equal_nan=True)
-    else:
-        check(flips < 0.06 * max(rows, 1), f"{label}: float32 flips")
-        for a, b in zip(got[1:4], want[1:4]):
-            torch.testing.assert_close(a[both], b[both], rtol=1e-5,
-                                       atol=1e-7)
-    return diff
+    print(f"{label}: {s['live']} live rows of {s['rows']} x "
+          f"kc={inputs[1].shape[1]}, found {s['found']} (plain "
+          f"{s['found_plain']}), flag flips {s['flips']}, deact diffs "
+          f"{s['deact_diffs']}, max |diff| of merged values "
+          f"{s['max_abs_diff']:.3e}")
+    return s["max_abs_diff"]
 
 
 def calibration_phase(card, cuda, graph, counts, events):
@@ -490,7 +479,7 @@ def calibration_phase(card, cuda, graph, counts, events):
         lv, n_lv = torch.unique(x.klthr[:live], return_counts=True)
         rows_per = dict(zip(lv.tolist(), n_lv.tolist()))
         core_case(f"{rnd} round float64 under the LUT thresholds", inputs,
-                  cfg_full, f64, x.chi2_thr)
+                  cfg_full, x.chi2_thr)
 
         def run():
             return cluster_kernel.cluster_core(*inputs, chi2_thr=x.chi2_thr,
@@ -776,7 +765,7 @@ def sharded_phase(card, cuda, graph):
             chi2_thr=a["chi2_thr"], member_slot=None, count=put(a["count"]))
         args = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
         core_case(f"owner rows (rank 0 of 2), {rnd} round float64", args,
-                  cfg, f64, x.chi2_thr, check_found=int(x.count) > 0)
+                  cfg, x.chi2_thr, check_found=int(x.count) > 0)
 
         def run():
             return cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr,
@@ -1014,7 +1003,6 @@ def bitwise_diff(a, b) -> list:
     """What differs bit for bit between two PipelineResults: candidates
     (nodes and p-values), FastSV rounds, and each field of the final
     state (floats compared as their bits, so NaN and -0.0 count)."""
-    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
     bad = []
     if not (len(a.candidates) == len(b.candidates) and all(
             x.iteration == y.iteration and np.array_equal(x.nodes, y.nodes)
@@ -1024,9 +1012,17 @@ def bitwise_diff(a, b) -> list:
         bad.append("candidates")
     if a.cca_rounds != b.cca_rounds:
         bad.append("cca_rounds")
+    return bad + state_diff(a.graph, b.graph)
+
+
+def state_diff(a, b) -> list:
+    """The fields of two GraphStates that differ bit for bit (floats
+    compared as their bits, so NaN and -0.0 count)."""
+    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
     bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    bad = []
     for name in tensor_fields():
-        x, y = getattr(a.graph, name), getattr(b.graph, name)
+        x, y = getattr(a, name), getattr(b, name)
         if x.dtype in bits:
             x, y = x.view(bits[x.dtype]), y.view(bits[y.dtype])
         if x.shape != y.shape or not torch.equal(x, y):
@@ -1232,6 +1228,93 @@ def captured_phase(card, cuda, graph, counts):
     return record
 
 
+def bench_phase(card, cuda):
+    """Phase 12: `python -m gnn_track_finding_tpu_torch.bench` as a user
+    runs it, at float32 and float64 (exit code 0, its two metric lines,
+    positive values, the gate passed, the card beside the numbers), and,
+    in this process, its captured message-passing loop against the same
+    number of eager extrapolation_stage calls, bitwise at float64.
+    Returns the record of the phase (the kernels' launches in each bench
+    run and in the loop among it)."""
+    from gnn_track_finding_tpu_torch import bench
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import cluster_kernel, distinct_kernel
+    t_phase = time.perf_counter()
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    record = {}
+    keys = ["metric", "value", "unit", "vs_baseline"]
+    for dtype, argv, suffix in (("float32", [], ""),
+                                ("float64", ["--dtype", "float64"],
+                                 "_float64")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "gnn_track_finding_tpu_torch.bench"] + argv,
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        log = proc.stderr.splitlines()
+        for line in log:
+            if line.startswith("[bench]"):
+                print("  " + line)
+        check(proc.returncode == 0, f"bench {dtype} exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = [json.loads(line) for line in proc.stdout.splitlines()]
+        names = [f"full_pipeline_seconds_full_event{suffix}",
+                 f"message_passing_edges_per_s_full_event{suffix}"]
+        check([line.get("metric") for line in lines] == names
+              and all(list(line) == keys and line["value"] > 0
+                      and line["vs_baseline"] > 0 for line in lines),
+              f"bench {dtype}: metric lines {lines}")
+        check(any(line.startswith("[bench] kernel gate passed")
+                  for line in log), f"bench {dtype}: no gate line")
+        check(any(card in line for line in log),
+              f"bench {dtype}: the card ({card}) is not named")
+        rec = json.loads(next(line for line in reversed(log)
+                              if line.startswith('{"bench"')))["bench"]
+        check(rec["card"] == card, f"bench {dtype}: card {rec['card']}")
+        check(all(v > 0 for v in rec["launches"].values()),
+              f"bench {dtype}: a kernel was not launched: {rec['launches']}")
+        if suffix:
+            check(rec["gate"]["accepted"] == bench.EXPECTED_F64,
+                  f"bench float64 counts {rec['gate']['accepted']}")
+        record[dtype] = {"lines": lines, "record": rec}
+        print(f"bench {dtype}: " + "; ".join(
+            f"{line['metric']} {line['value']} {line['unit']}"
+            for line in lines) + f" ({card})")
+
+    # the captured loop against the eager one, float64, full event
+    g = bench.load_event(bench.FULL_EVENT, bench.CFG, device=cuda,
+                         dtype=torch.float64)
+    g1 = bench.clustered(g, bench.CFG)
+    cluster_kernel.cluster_core.launches = 0
+    distinct_kernel.distinct_counts.launches = 0
+    stage = bench.CapturedStage(g1, bench.CFG)
+    looped = bench.message_passing_loop(g1, bench.CFG, bench.N_REP, stage)
+    launches = pipeline.kernel_launches()
+    eager = g1
+    for _ in range(bench.N_REP):
+        eager = pipeline.extrapolation_stage(eager, bench.CFG)
+    bad = state_diff(looped.final, eager)
+    record["loop"] = {"launches": launches,
+                      "launches_per_replay": stage.launches,
+                      "checksum": looped.checksum,
+                      "iteration_s": looped.seconds}
+    print(f"captured message-passing loop, {bench.N_REP} replays, full event "
+          f"float64: checksum {looped.checksum} (eager "
+          f"{int(eager.active.sum())}), {looped.seconds * 1e3:.4f} ms per "
+          f"iteration; bitwise the eager loop: {not bad} {bad}; kernel "
+          f"launches (warm-up + capture) {launches}, per replay "
+          f"{stage.launches}")
+    check(not bad, f"the captured loop differs from the eager one in {bad}")
+    check(looped.checksum == int(eager.active.sum()), "loop checksum")
+    check(launches["distinct_counts"] > 0 and stage.launches[
+        "distinct_counts"] > 0, "distinct_counts is not in the captured loop")
+    del stage
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"bench": record}))
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1. device")
@@ -1305,10 +1388,9 @@ def main() -> int:
 
     phase("3. GMR clustering kernel vs plain (full event, edge cases)")
 
-    def round_case(label, x, cfg, dtype):
+    def round_case(label, x, cfg):
         return core_case(label, (x.states, x.tab, x.node_xyzr, x.klthr,
-                                 x.count), cfg,
-                         dtype, x.chi2_thr)
+                                 x.count), cfg, x.chi2_thr)
 
     cluster_inputs = {}
     record["cluster_max_abs_err"] = 0.0
@@ -1317,21 +1399,19 @@ def main() -> int:
         g = pipeline.prepare(g, cfg)
         name = str(dtype).split(".")[1]
         x = clustering.core_inputs(g, cfg, False)
-        err = round_case(f"seed round {name}", x, cfg, dtype)
+        err = round_case(f"seed round {name}", x, cfg)
         if dtype == torch.float64:
             record["cluster_max_abs_err"] = err
             for kc in (4, 32):
                 round_case(f"seed round float64 kc={kc}",
-                           clustering.core_inputs(g, cfg, False, kc=kc), cfg,
-                           dtype)
+                           clustering.core_inputs(g, cfg, False, kc=kc), cfg)
             absorb = torch.full((g.num_padded_nodes,), 1e30, device=cuda)
             round_case("seed round float64 klthr 1e30 (full absorption)",
-                       clustering.core_inputs(g, cfg, False, absorb), cfg,
-                       dtype)
+                       clustering.core_inputs(g, cfg, False, absorb), cfg)
         for i in (1, 2):
             g, _ = pipeline.iteration(g, cfg, i)
         x_upd = clustering.core_inputs(g, cfg, True)
-        round_case(f"updated round {name}", x_upd, cfg, dtype)
+        round_case(f"updated round {name}", x_upd, cfg)
         cluster_inputs[dtype] = (x, x_upd, cfg)
     # clean mode (bug_compat=False): the full KL trace and the z endcap
     # coordinate, in both rounds of the full event
@@ -1341,11 +1421,11 @@ def main() -> int:
           "clean ingest: the mirror is not the identity")
     g = pipeline.prepare(g, cfg)
     x = clustering.core_inputs(g, cfg, False)
-    round_case("clean mode seed round float64", x, cfg, torch.float64)
+    round_case("clean mode seed round float64", x, cfg)
     for i in (1, 2):
         g, _ = pipeline.iteration(g, cfg, i)
     x_upd = clustering.core_inputs(g, cfg, True)
-    round_case("clean mode updated round float64", x_upd, cfg, torch.float64)
+    round_case("clean mode updated round float64", x_upd, cfg)
     cluster_inputs["clean"] = (x, x_upd, cfg)
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[1]
@@ -1356,8 +1436,7 @@ def main() -> int:
                 core_case(f"synthetic {name} rows={rows} kc={kc}",
                           testing.cluster_rows(rows + kc, rows, kc, members,
                                                dtype=dtype, device=cuda),
-                          PipelineConfig(), dtype, 1.0,
-                          check_found=rows >= 33)
+                          PipelineConfig(), 1.0, check_found=rows >= 33)
 
     phase("4. distinct-count kernel vs plain")
     g, cfg = graph(FULL, torch.float64)
@@ -1713,6 +1792,12 @@ def main() -> int:
     per_replay = captured["programs"]["full event float64"][
         "launches_per_replay"]
 
+    phase("12. the bench: python -m gnn_track_finding_tpu_torch.bench")
+    benched = bench_phase(card, cuda)
+    bench_launches = lambda name: {
+        dtype: benched[dtype]["record"]["launches"][name]
+        for dtype in ("float32", "float64")}
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
@@ -1741,6 +1826,7 @@ def main() -> int:
              for rnd in ("seed", "updated")},
          "launches_clean_volume7": clean_launches["gmr_cluster"],
          "launches_studies": studies("gmr_cluster"),
+         "launches_bench": bench_launches("gmr_cluster"),
          "launches_sharded": sharded_launches["gmr_cluster"],
          "owner_rows": {rnd: owner[f"gmr_cluster {rnd}"]
                         for rnd in ("seed", "updated")},
@@ -1765,6 +1851,7 @@ def main() -> int:
          "launches_sharded": sharded_launches["distinct_counts"],
          "launches_clean_volume7": clean_launches["distinct_counts"],
          "launches_studies": studies("distinct_counts"),
+         "launches_bench": bench_launches("distinct_counts"),
          "owner_rows": owner["distinct_counts"],
          "times": {k: v for k, v in times.items()
                    if k.startswith("distinct_counts")},

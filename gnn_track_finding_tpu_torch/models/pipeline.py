@@ -397,7 +397,47 @@ class _Slot:
         self.copied = torch.cuda.Event()
 
 
-class CapturedSchedule:
+def kernel_launches() -> dict:
+    """Both kernel wrappers' launch counters, by kernel."""
+    return {"gmr_cluster": cluster_kernel.cluster_core.launches,
+            "distinct_counts": distinct_kernel.distinct_counts.launches}
+
+
+class CapturedGraph:
+    """A program captured once as one CUDA graph (`_capture`): `graph`,
+    `capture_seconds`, `instantiate_seconds` (end of capture +
+    instantiate), `pool_bytes` (the device memory the capture reserved)
+    and `launches` (the kernel launches captured, which every replay
+    makes; the kernels' counters count the warm-up and the capture, never
+    a replay)."""
+
+    def _capture(self, body, dev):
+        """body() once on a side stream (the warm-up), then captured in
+        capture_error_mode "thread_local", so another thread (a prefetch
+        thread) may go on using the device meanwhile -> body()'s output,
+        in the graph's memory.  The kernel library must be built before:
+        nvcc cannot run inside a capture."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = kernel_launches()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            t0 = time.perf_counter()
+            reserved = torch.cuda.memory_reserved(dev)
+            out = body()
+            t1 = time.perf_counter()
+        self.capture_seconds = t1 - t0
+        self.instantiate_seconds = time.perf_counter() - t1
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = {k: v - before[k]
+                         for k, v in kernel_launches().items()}
+        return out
+
+
+class CapturedSchedule(CapturedGraph):
     """full_pipeline_packed of one pad bucket, captured once as one CUDA
     graph and replayed per event (`launch`); under an edge partition
     (`group`, `routing`: an NCCL group on the card) the rank's
@@ -406,23 +446,19 @@ class CapturedSchedule:
     group captures in lockstep: the same ops and collectives in the same
     order, since each runs the same program.
 
-    The capture runs after one warm-up run on a side stream (the kernel
-    library built first) and in capture_error_mode "thread_local", so a
-    prefetch thread may go on building the next event on the device while
-    it runs.  The program's memory (every intermediate of one event, in
-    the graph's private pool, and a copy of one event's state as its
-    inputs) stays reserved while it is cached.  Each
-    event: its state tensors are copied into the program's inputs (device
-    to device), the graph is replayed, the final state is cloned out of
-    the program's outputs (a fresh GraphState, as JAX returns a fresh
-    g_out) and the packed buffer is copied, non-blocking, into a pinned
-    host slot; nothing of that waits for the device.  The kernels' launch
-    counters count the warm-up and the capture, not the replays;
-    `launches` holds the launches captured, which every replay makes."""
+    A prefetch thread may go on building the next event on the device
+    while the capture (CapturedGraph._capture) runs.  The program's
+    memory (every intermediate of one event, in the graph's private pool,
+    and a copy of one event's state as its inputs) stays reserved while
+    it is cached.  Each event: its state tensors are copied into the
+    program's inputs (device to device), the graph is replayed, the final
+    state is cloned out of the program's outputs (a fresh GraphState, as
+    JAX returns a fresh g_out) and the packed buffer is copied,
+    non-blocking, into a pinned host slot; nothing of that waits for the
+    device."""
 
     def __init__(self, g: GraphState, cfg: PipelineConfig, group=None,
                  routing=None):
-        dev = g.device
         self.cfg = cfg
         _build.library()                      # nvcc outside the capture
         self.inputs = {name: getattr(g, name).clone()
@@ -430,36 +466,16 @@ class CapturedSchedule:
         static = g.replace(n_nodes=0, n_edges=0, **self.inputs)
         self.routing_inputs = {}
         if group is None:
-            body = lambda: full_pipeline_packed(static, cfg)
+            self.out, self.packed = self._capture(
+                lambda: full_pipeline_packed(static, cfg), g.device)
         else:
             self.routing_inputs = {name: t.clone() for name, t in
                                    _routing_tensors(routing).items()}
             static_routing = dataclasses.replace(routing,
                                                  **self.routing_inputs)
-            body = lambda: full_pipeline_results(static, cfg, group,
-                                                 static_routing)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        counters = (cluster_kernel.cluster_core,
-                    distinct_kernel.distinct_counts)
-        before = [c.launches for c in counters]
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            t0 = time.perf_counter()
-            reserved = torch.cuda.memory_reserved(dev)
-            if group is None:
-                self.out, self.packed = body()
-            else:
-                self.results = body()
-            t1 = time.perf_counter()
-        self.capture_seconds = t1 - t0
-        self.instantiate_seconds = time.perf_counter() - t1
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = {"gmr_cluster": counters[0].launches - before[0],
-                         "distinct_counts": counters[1].launches - before[1]}
+            self.results = self._capture(
+                lambda: full_pipeline_results(static, cfg, group,
+                                              static_routing), g.device)
         self._free: List[_Slot] = []
 
     def launch(self, g: GraphState) -> "_Pending":

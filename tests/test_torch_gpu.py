@@ -8,7 +8,8 @@ kernel under the runner's LUT thresholds, a calibrated toy run against the
 same run on the CPU), and the edge-partitioned schedule on the card (2
 gloo ranks on one card, 1 NCCL rank, the clustering kernel on routed
 owner rows, the NCCL rank's schedule captured as one CUDA graph and
-replayed by run_sharded and run_batched).
+replayed by run_sharded and run_batched), and the bench's gate, captured
+message-passing loop and schedule timing on volume 7.
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnn_track_finding_tpu_torch import testing
+from gnn_track_finding_tpu_torch import bench, testing
 from gnn_track_finding_tpu_torch.calib import lut, training_data
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
@@ -540,3 +541,33 @@ def test_cluster_kernel_reads_the_row_count_on_the_device(cuda, source):
     for a, b in zip(got, uncounted):
         assert torch.equal(a[:live], b[:live])
     assert not got[4][live:].any() and not got[1][live:].any()
+
+
+@pytest.mark.gpu
+def test_bench_on_the_card(cuda):
+    """The bench's pieces on volume 7 at float64: the kernel gate passes
+    with the reference's counts; the captured message-passing loop equals
+    as many eager extrapolation_stage calls bitwise, with distinct_counts
+    in its graph; the captured schedule accepts 3 x the counts."""
+    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
+    g = _volume7(cuda, torch.float64)
+    gate = bench.kernel_gate(g, CFG, [1055, 110, 2])
+    assert gate["gmr_cluster"]["flips"] == 0
+    g1 = bench.clustered(g, CFG)
+    stage = bench.CapturedStage(g1, CFG)
+    assert stage.launches == {"gmr_cluster": 0, "distinct_counts": 2}
+    looped = bench.message_passing_loop(g1, CFG, 5, stage)
+    eager = g1
+    for _ in range(5):
+        eager = pipeline.extrapolation_stage(eager, CFG)
+    bits = {torch.float64: torch.int64}
+    for name in tensor_fields():
+        a, b = getattr(looped.final, name), getattr(eager, name)
+        if a.dtype in bits:
+            a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
+        assert torch.equal(a, b), name
+    assert looped.checksum == int(eager.active.sum())
+    full = bench.full_pipeline_seconds(g, CFG, n_full=3)
+    assert full.accepted == 3 * sum(gate["accepted"])
+    assert full.counts == [1055, 110, 2] and full.seconds > 0
+    pipeline.clear_programs()

@@ -26,6 +26,7 @@ from gnn_track_finding_tpu.ops import extract as jax_extract
 
 import torch
 
+from gnn_track_finding_tpu_torch import bench
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph import cca
 from gnn_track_finding_tpu_torch.graph import state as tstate
@@ -149,6 +150,19 @@ def test_extraction(staged, it):
 def test_extrapolation_stage(staged):
     g = pipeline.extrapolation_stage(to_port(staged["extract1"]), CFG)
     assert_state_close(staged["stage2"], g)
+
+
+def test_bench_message_passing_loop(staged):
+    """The bench's message-passing loop (eager on CPU tensors) against
+    JAX's stage 2 applied as many times to the same clustered state, the
+    program the fixture already compiled; the checksum exact."""
+    n_rep = 3
+    ref = staged["stage1"]
+    for _ in range(n_rep):
+        ref = jax_pipeline._stage_jit(ref, JCFG, 2, None)
+    out = bench.message_passing_loop(to_port(staged["stage1"]), CFG, n_rep)
+    assert_state_close(ref, out.final)
+    assert out.checksum == int(np.asarray(ref.active).sum()) > 0
 
 
 def test_metadata(staged):
