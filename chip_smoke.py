@@ -65,8 +65,9 @@ PyTorch versions on the card:
      single-device port (counts, candidates, the gathered state: masks and
      integers exact, floats rtol 1e-12 and grad_stats' variances to 1e-12
      of their second moment); volume 7 twice through run_batched on a
-     (2, 1) mesh (gloo: eager, gloo cannot be captured), each event
-     bitwise the single-device run's; both kernels against their plain
+     (2, 1) gloo mesh (an edge group of one rank: each data rank's event
+     one captured program, with no collective), each event bitwise the
+     single-device run's; both kernels against their plain
      versions on each rank's owner rows (both clustering rounds, the
      first reweight pass; the static (N / D)-row table with its device
      count), bitwise, and their device times and bounds there; the
@@ -78,8 +79,9 @@ PyTorch versions on the card:
      program and the single-device run; the per-event wall, captured and
      eager in turns, best of 5; capture and instantiate seconds, the graph
      pool, the kernels' launches per replay, no fallback; and run_batched
-     on a (1, 1) NCCL mesh over volume 7 twice, one program captured, each
-     event bitwise the single-device run's.  A failed capture raises.
+     on a (1, 1) NCCL mesh over volume 7 twice, the two events as one
+     batched program captured, each event bitwise the single-device
+     run's.  A failed capture raises.
      Two ranks on one card measure the code path, not scaling;
  10. the analysis and calibration studies at float64, each on the card
      against the same call on CPU tensors, with both kernels' launches per
@@ -121,7 +123,29 @@ program run op by op), so their rows stay comparable with earlier runs:
      kernels launched, the card's name and power limit beside the
      numbers; and its captured message-passing loop (N_REP replays of one
      captured extrapolation_stage) bitwise the same number of eager
-     stage calls at float64.  Its record is printed as one JSON line.
+     stage calls at float64.  Its record is printed as one JSON line;
+ 13. the event batch (parallel/mesh.stack_events,
+     pipeline.run_pipeline_batched): copies of the full event rotated
+     about the beam axis (bench.load_rotated: the same graph, other
+     floats) as one captured program.  At float64, 4 copies (copy b by
+     b * 2 pi / 4): each event's candidates, p-values, FastSV rounds and
+     final state bitwise its own single-event replay and the batched
+     eager run (first call and a replay), copy 0 at the reference's
+     counts, 2 gmr_cluster and 3 distinct_counts launches per replay, the
+     kernels launched in the first call (counters zeroed just before it),
+     the stack, replay and readback under
+     torch.cuda.set_sync_debug_mode("error"); at float32 each event's
+     counts equal to its single replay's.  Both kernels against their
+     plain versions on the 4 events' inputs (the seed round's rows, the
+     first reweight table), bitwise at float64 and in the bench's band at
+     float32, with device times (L2 flushed and warm), plain times and
+     bounds.  Events/s of one batched replay against B single replays in
+     turn, each clock ending in torch.cuda.synchronize() (best of 3), on
+     the full event at B = 1, 2, 4, 8 (float32) and 4 (float64) and on
+     volume 7 at B = 1, 8, 32 (float32), with the device time of one
+     replay, capture and instantiate seconds, the graph pool, the peak
+     allocation and the launches per replay.  Its record, with the card,
+     is printed as one JSON line, {"event_batch": ...}.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -733,15 +757,17 @@ def sharded_phase(card, cuda, graph):
                   and not testing.states_differ(ref7_graph, o["graph"],
                                                 rtol=0.0),
                   f"run_batched event {i} differs from the single-device run")
+        # an edge group of one rank runs its data slice as one program,
+        # with no collective: captured on the card whatever the backend
         paths = sorted({o["path"] for o in per_event.values()})
         programs = [r[max(r)]["programs"] for r in jobs_out]
-        want = ["eager"] if mesh_shape == (2, 1) else ["captured"]
-        check(paths == want, f"run_batched on {mesh_shape}: paths {paths}")
-        check(programs == ([0, 0] if want == ["eager"] else [1]),
+        check(paths == ["captured"],
+              f"run_batched on {mesh_shape}: paths {paths}")
+        check(programs == [1] * mesh_shape[0],
               f"run_batched on {mesh_shape}: programs per rank {programs}")
-        print(f"run_batched on a {mesh_shape} mesh ("
-              f"{'the gloo ranks' if want == ['eager'] else 'the NCCL rank'}"
-              f"), volume 7 twice: accepted "
+        who = "the gloo ranks" if mesh_shape == (2, 1) else "the NCCL rank"
+        print(f"run_batched on a {mesh_shape} mesh ({who}), volume 7 "
+              f"twice: accepted "
               f"{[per_event[i]['acc_count'] for i in (0, 1)]}, each event "
               f"bitwise the single-device run's; path {paths[0]}; programs "
               f"captured per rank {programs}")
@@ -1315,6 +1341,235 @@ def bench_phase(card, cuda):
     return record
 
 
+def batch_phase(card, cuda):
+    """Phase 13: B events of one pad bucket as one captured program
+    (parallel/mesh.stack_events, pipeline.run_pipeline_batched).  Copies
+    of the full event rotated about the beam axis (bench.load_rotated: the
+    same graph, other floats) make distinct events.  Returns the record of
+    the phase (the kernels' launches, agreement, times and bounds on the
+    batched inputs among it)."""
+    from gnn_track_finding_tpu_torch import bench
+    from gnn_track_finding_tpu_torch.data.event_cache import load_npz
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                                 distinct_kernel,
+                                                 extrapolate, priors)
+    from gnn_track_finding_tpu_torch.parallel import mesh
+    f64, f32 = torch.float64, torch.float32
+    print(f"card: {card}")
+    t_phase = time.perf_counter()
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    fallbacks = pipeline.fallbacks
+    cfg = bench.CFG
+    record = {"card": card}
+
+    vivl = load_npz(VOL7)[1]
+    vol7_cfg = type(cfg)(min_volume=int(vivl[:, 0].min()),
+                         max_volume=int(vivl[:, 0].max()))
+
+    def copies(path, count, dtype, turn=8):
+        """The first `count` copies of the event rotated by b * 2 pi / turn."""
+        return [bench.load_rotated(path, cfg if path == FULL else vol7_cfg,
+                                   b, turn, device=cuda, dtype=dtype)
+                for b in range(count)]
+
+    # float64, B = 4: copy b rotated by b * 2 pi / 4, against each copy's
+    # single-event replay (the first call captures that program)
+    evs = copies(FULL, 4, f64, turn=4)
+    pipeline.run_pipeline_fast(evs[0], cfg)
+    singles = [pipeline.run_pipeline_fast(g, cfg) for g in evs]
+    cluster_kernel.cluster_core.launches = 0
+    distinct_kernel.distinct_counts.launches = 0
+    first = pipeline.run_pipeline_batched(evs, cfg)
+    first_launches = pipeline.kernel_launches()
+    check(all(v > 0 for v in first_launches.values()),
+          f"a kernel was not launched in the batched run: {first_launches}")
+    st = mesh.stack_events(evs)
+    prog = pipeline.captured_program(st, cfg)
+    replayed = pipeline.run_pipeline_batched(evs, cfg)
+    check(pipeline.kernel_launches() == first_launches,
+          "a batched replay counted launches")
+    eager = pipeline.run_pipeline_batched(evs, cfg, eager=True)
+    bad = {b: bitwise_diff(first[b], singles[b])
+           + bitwise_diff(replayed[b], singles[b])
+           + bitwise_diff(replayed[b], eager[b]) for b in range(4)}
+    per_copy = [bench.per_iteration(o, cfg) for o in replayed]
+    print(f"full event float64, 4 rotated copies in one captured program: "
+          f"accepted {per_copy}, FastSV rounds "
+          f"{[o.cca_rounds for o in replayed]}; kernel launches in the first "
+          f"call {first_launches} (warm-up + capture), per replay "
+          f"{prog.launches}; each event bitwise its own single-event replay "
+          f"(first call and a replay) and the batched eager run: "
+          f"{not any(bad.values())} {bad}")
+    check(not any(bad.values()), f"batched results differ: {bad}")
+    check(per_copy[0] == EXPECTED_F64[FULL], f"copy 0 counts {per_copy[0]}")
+    check(prog.launches == {"gmr_cluster": 2, "distinct_counts": 3},
+          f"launches per batched replay {prog.launches}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = prog.launch_batch(mesh.stack_events(evs), evs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    quiet = [p.result() for p in pending]
+    check(not any(bitwise_diff(q, s) for q, s in zip(quiet, singles)),
+          "the batched replay under the sync debug mode differs")
+    print("stack, copy in, batched replay, state clone, unstack and readback "
+          "copy enqueued under torch.cuda.set_sync_debug_mode('error'): no "
+          "synchronising call")
+    record["float64_b4"] = {"accepted": per_copy,
+                            "launches_first_call": first_launches,
+                            "launches_per_replay": prog.launches}
+
+    # the kernels against their plain versions on the batched inputs
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
+    kernels = {}
+    evs32 = copies(FULL, 4, f32, turn=4)
+    for dtype, graphs in ((f64, evs), (f32, evs32)):
+        name = str(dtype).split(".")[1]
+        sb = mesh.stack_events(graphs)
+        prepared = pipeline.prepare(sb, cfg)
+        x = clustering.core_inputs(prepared, cfg, False)
+        inputs = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
+        err = core_case(f"gmr_cluster, 4 events' seed round {name}", inputs,
+                        cfg, x.chi2_thr)
+        run = lambda: cluster_kernel.cluster_core(*inputs,
+                                                  chi2_thr=x.chi2_thr, cfg=cfg)
+        rec = {"shape": f"{int(x.count)} live rows of {tuple(x.tab.shape)}",
+               "max_abs_err": err, "ms": device_ms(run, flush=flush),
+               "ms_warm_l2": device_ms(run),
+               "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
+                   *inputs, chi2_thr=x.chi2_thr, cfg=cfg), reps=5),
+               **cluster_bound(x, run(), cfg)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        kernels[f"gmr_cluster {name}"] = rec
+        g2, _ = pipeline.iteration(prepared, cfg, 1)
+        ok, xt, nx = priors.distinct_inputs(extrapolate.message_passing(g2,
+                                                                        cfg))
+        stats = bench.compare_distinct(ok, xt, nx)
+        run = lambda: distinct_kernel.distinct_counts(ok, xt, nx)
+        rec = {"shape": f"{tuple(ok.shape)}", "max_abs_err": 0.0,
+               "ok_slots": stats["ok_slots"],
+               "ms": device_ms(run, flush=flush),
+               "ms_warm_l2": device_ms(run),
+               "plain_ms": call_ms(lambda: bench._distinct_plain(ok, xt, nx)),
+               **distinct_bound(ok, xt)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        kernels[f"distinct_counts {name}"] = rec
+    del flush
+    for key, rec in kernels.items():
+        print(f"{key} on the 4 events' inputs ({rec['shape']}): device time "
+              f"{rec['ms']:.4f} ms (L2 flushed), {rec['ms_warm_l2']:.4f} ms "
+              f"(warm), plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} "
+              f"({rec['share_of_bound']:.1%} of it), agreement max |diff| "
+              f"{rec['max_abs_err']}")
+    record["kernels"] = kernels
+
+    # float32, B = 4: per-event counts equal the single-event replays'
+    singles32 = [pipeline.run_pipeline_fast(g, cfg) for g in evs32]
+    batched32 = pipeline.run_pipeline_batched(evs32, cfg)
+    c32 = [bench.per_iteration(o, cfg) for o in batched32]
+    check(c32 == [bench.per_iteration(o, cfg) for o in singles32],
+          f"float32 batched counts {c32} differ from the single replays'")
+    record["float32_b4"] = {"accepted": c32, "bitwise_single": not any(
+        bitwise_diff(a, b) for a, b in zip(batched32, singles32))}
+    print(f"full event float32, 4 rotated copies: accepted {c32}, each equal "
+          f"to its single-event replay's (bitwise: "
+          f"{record['float32_b4']['bitwise_single']})")
+    del evs, evs32, singles, first, replayed, eager, quiet
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+
+    # events/s: one batched replay against B single-event replays back to
+    # back, each clock ending in torch.cuda.synchronize(), best of 3 in
+    # turns; the device time of one replay (CUDA events)
+    def replay_ms(p):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start.record()
+            p.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    timing = {}
+    cases = [("full event", FULL, f32, (1, 2, 4, 8)),
+             ("full event", FULL, f64, (4,)),
+             ("volume 7", VOL7, f32, (1, 8, 32))]
+    for label, path, dtype, sizes in cases:
+        name = str(dtype).split(".")[1]
+        pool = copies(path, max(sizes), dtype, turn=max(sizes))
+        single = pipeline.captured_program(pool[0], cfg if path == FULL
+                                           else vol7_cfg)
+        ecfg = single.cfg
+        pipeline.run_pipeline_fast(pool[0], ecfg)
+        single_ms = replay_ms(single)
+        for b in sizes:
+            graphs = pool[:b]
+            torch.cuda.reset_peak_memory_stats()
+            sb = mesh.stack_events(graphs)
+            prog = pipeline.captured_program(sb, ecfg)
+            check(prog.launches == {"gmr_cluster": 2, "distinct_counts": 3},
+                  f"{label} B={b}: launches per replay {prog.launches}")
+            walls = {"batched": [], "sequential": []}
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pend = prog.launch_batch(sb, graphs)
+                torch.cuda.synchronize()
+                walls["batched"].append(time.perf_counter() - t0)
+                got = [bench.per_iteration(p.result(), ecfg) for p in pend]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pend = [single.launch(g) for g in graphs]
+                torch.cuda.synchronize()
+                walls["sequential"].append(time.perf_counter() - t0)
+                want = [bench.per_iteration(p.result(), ecfg) for p in pend]
+                check(got == want, f"{label} {name} B={b}: batched counts "
+                      f"{got}, single {want}")
+            best = {k: min(v) for k, v in walls.items()}
+            rec = {"events_per_s_batched": b / best["batched"],
+                   "events_per_s_sequential": b / best["sequential"],
+                   "speedup": best["sequential"] / best["batched"],
+                   "walls_s": walls,
+                   "replay_ms": replay_ms(prog),
+                   "single_replay_ms": single_ms,
+                   "capture_s": prog.capture_seconds,
+                   "instantiate_s": prog.instantiate_seconds,
+                   "pool_gib": prog.pool_bytes / 2**30,
+                   "peak_allocated_gib":
+                       torch.cuda.max_memory_allocated() / 2**30,
+                   "launches_per_replay": prog.launches,
+                   "accepted_per_event": got}
+            timing[f"{label} {name} B={b}"] = rec
+            print(f"{label} {name} B={b}: batched "
+                  f"{rec['events_per_s_batched']:.3f} events/s against {rec['events_per_s_sequential']:.3f} for "
+                  f"{b} single replays in turn (x{rec['speedup']:.3f}); one "
+                  f"batched replay {rec['replay_ms']:.3f} ms on the device "
+                  f"(a single replay {single_ms:.3f} ms); capture "
+                  f"{rec['capture_s']:.3f} s, instantiate "
+                  f"{rec['instantiate_s']:.3f} s, pool {rec['pool_gib']:.3f} "
+                  f"GiB, peak allocated {rec['peak_allocated_gib']:.3f} GiB; "
+                  f"launches per replay {prog.launches}")
+            del sb, prog, pend
+        del pool, single
+        pipeline.clear_programs()
+        torch.cuda.empty_cache()
+    record["timing"] = timing
+    record["fallbacks"] = pipeline.fallbacks - fallbacks
+    check(record["fallbacks"] == 0, "an event fell back to the host driver")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"fallbacks {record['fallbacks']}; phase 13: "
+          f"{record['seconds']:.1f} s")
+    print(json.dumps({"event_batch": record}))
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1. device")
@@ -1798,6 +2053,19 @@ def main() -> int:
         dtype: benched[dtype]["record"]["launches"][name]
         for dtype in ("float32", "float64")}
 
+    phase("13. the event batch: B events in one captured program")
+    batched = batch_phase(card, cuda)
+
+    def event_batch(name):
+        """A kernel's launches, agreement, times and bound in phase 13."""
+        return {"launches_first_call":
+                    batched["float64_b4"]["launches_first_call"][name],
+                "launches_per_replay": {
+                    k: v["launches_per_replay"][name]
+                    for k, v in batched["timing"].items()},
+                **{dtype: batched["kernels"][f"{name} {dtype}"]
+                   for dtype in ("float64", "float32")}}
+
     kernels = [
         {"name": "gmr_cluster", "route": "cuda", "source": CLUSTER_SOURCE,
          "replaces": CLUSTER_REPLACES, "launches": launches["gmr_cluster"],
@@ -1833,7 +2101,8 @@ def main() -> int:
          "times": {k: v for k, v in times.items()
                    if k.startswith(("gmr_cluster", "cluster stage"))},
          "occupancy": {k: v for k, v in occupancy.items()
-                       if k.startswith("gmr_cluster")}},
+                       if k.startswith("gmr_cluster")},
+         "event_batch": event_batch("gmr_cluster")},
         {"name": "distinct_counts", "route": "cuda", "source": DISTINCT_SOURCE,
          "replaces": DISTINCT_REPLACES,
          "launches": launches["distinct_counts"],
@@ -1856,7 +2125,8 @@ def main() -> int:
          "times": {k: v for k, v in times.items()
                    if k.startswith("distinct_counts")},
          "occupancy": {k: v for k, v in occupancy.items()
-                       if k.startswith("distinct_counts")}},
+                       if k.startswith("distinct_counts")},
+         "event_batch": event_batch("distinct_counts")},
     ]
     print(f"\nchip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

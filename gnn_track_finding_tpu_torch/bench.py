@@ -33,12 +33,25 @@ failed gate, build, capture or stream raises: the process exits non-zero
 and prints no metric line.  Without CUDA it exits 2.
 
     python -m gnn_track_finding_tpu_torch.bench [--dtype float64]
+
+--pileup B is the counterpart of the JAX package's tools/bench_pileup.py:
+after the kernel gate, B copies of the full event (copy b rotated about
+the beam axis by b * 2 pi / B: the same graph, other floats) run N_FULL
+times as B single-event replays in turn and as one replay of the
+batch's program (graph/state.stack_events), each replay read back before
+the next; stderr gets bench_pileup's three records
+(sequential and batched s/event and events/s with their checksums, the
+accepted candidates over all runs, and the speedup), then one JSON
+record.  It prints no metric line.
+
+    python -m gnn_track_finding_tpu_torch.bench --pileup 4 [--dtype float64]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,6 +59,7 @@ import time
 from pathlib import Path
 from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 from gnn_track_finding_tpu_torch import _build
@@ -94,6 +108,25 @@ def load_event(path, cfg: PipelineConfig, *, device, dtype) -> GraphState:
     """The event's GraphState from its cache, with the cached set()-order
     mirror and components."""
     xyzr, vivl, tp, pairs, _, pre = event_cache.load_npz(path)
+    return build_graph_state(xyzr, vivl, tp, pairs, cfg, device=device,
+                             dtype=dtype, mirror=pre["mirror"],
+                             component=pre["component"])
+
+
+def load_rotated(path, cfg: PipelineConfig, copy: int, copies: int, *,
+                 device, dtype) -> GraphState:
+    """The event with every hit rotated about the beam axis by
+    copy * 2 pi / copies in (x, y) (r as cached): the same graph, other
+    floats, so that `copies` such events make a batch of distinct
+    events of one pad bucket; copy 0 is the event itself."""
+    xyzr, vivl, tp, pairs, _, pre = event_cache.load_npz(path)
+    if copy:
+        phi = 2.0 * math.pi * copy / copies
+        c, s = math.cos(phi), math.sin(phi)
+        xyzr = xyzr.astype(np.float64, copy=True)
+        x, y = xyzr[:, 0].copy(), xyzr[:, 1].copy()
+        xyzr[:, 0] = c * x - s * y
+        xyzr[:, 1] = s * x + c * y
     return build_graph_state(xyzr, vivl, tp, pairs, cfg, device=device,
                              dtype=dtype, mirror=pre["mirror"],
                              component=pre["component"])
@@ -204,6 +237,67 @@ def full_pipeline_seconds(g: GraphState, cfg: PipelineConfig,
     return FullResult(seconds / n_full,
                       sum(len(r.candidates) for r in results),
                       per_iteration(results[-1], cfg))
+
+
+# ----------------------------------------------------------------- pileup
+
+def pileup(graphs: List[GraphState], cfg: PipelineConfig,
+           n_rep: int = N_FULL) -> dict:
+    """tools/bench_pileup.py's comparison on the graphs' device: the B
+    events n_rep times as B single-event runs in turn
+    (pipeline.run_pipeline_fast) and as one batched run
+    (pipeline.run_pipeline_batched: the events stacked and dispatched as
+    one program), each run read back before the next starts; both
+    dispatch on the device (on a CUDA device replays of the captured
+    programs, captured in one warm-up run of each before the clocks).
+    Checksums: the accepted candidates over all runs, the same on both
+    paths.  -> the record."""
+    b = len(graphs)
+
+    def seq():
+        return [pipeline.run_pipeline_fast(g, cfg)
+                for _ in range(n_rep) for g in graphs]
+
+    def par():
+        return [r for _ in range(n_rep)
+                for r in pipeline.run_pipeline_batched(graphs, cfg)]
+
+    def timed(run):
+        t0 = time.perf_counter()
+        out = run()
+        return time.perf_counter() - t0, out
+
+    pipeline.run_pipeline_fast(graphs[0], cfg)
+    pipeline.run_pipeline_batched(graphs, cfg)
+    t_seq, out_seq = timed(seq)
+    t_par, out_par = timed(par)
+    per_event = lambda outs: [len(r.candidates) for r in outs[:b]]
+    rec = {"batch": b, "repeats": n_rep,
+           "sequential_s_per_event": t_seq / (b * n_rep),
+           "batched_s_per_event": t_par / (b * n_rep),
+           "sequential_checksum": sum(len(r.candidates) for r in out_seq),
+           "batched_checksum": sum(len(r.candidates) for r in out_par),
+           "candidates_per_event": per_event(out_seq)}
+    rec["sequential_events_per_s"] = 1.0 / rec["sequential_s_per_event"]
+    rec["batched_events_per_s"] = 1.0 / rec["batched_s_per_event"]
+    rec["speedup"] = t_seq / t_par
+    if (rec["sequential_checksum"] != rec["batched_checksum"]
+            or per_event(out_par) != rec["candidates_per_event"]):
+        raise GateError(f"batched candidates {per_event(out_par)} differ "
+                        f"from sequential {rec['candidates_per_event']}")
+    return rec
+
+
+def pileup_lines(rec: dict) -> List[str]:
+    """bench_pileup's three records."""
+    return [f"[pileup] sequential {rec['sequential_s_per_event']:.6f} s/event "
+            f"({rec['sequential_events_per_s']:.4f} events/s, checksum "
+            f"{rec['sequential_checksum']})",
+            f"[pileup] batched(B={rec['batch']}) "
+            f"{rec['batched_s_per_event']:.6f} s/event "
+            f"({rec['batched_events_per_s']:.4f} events/s, checksum "
+            f"{rec['batched_checksum']})",
+            f"[pileup] batching speedup x{rec['speedup']:.4f}"]
 
 
 # ------------------------------------------------------------ kernel gate
@@ -339,6 +433,10 @@ def main(argv=None) -> int:
                         default="float32",
                         help="working dtype (float64: the parity mode, the "
                              "counts pinned to the reference's)")
+    parser.add_argument("--pileup", type=int, metavar="B",
+                        help="after the gate, B rotated copies of the event "
+                             "run in turn and as one batched program "
+                             "(tools/bench_pileup.py); no metric line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("gnn_track_finding_tpu_torch.bench needs a CUDA device "
@@ -376,6 +474,19 @@ def main(argv=None) -> int:
 
     rec["gate"] = kernel_gate(g, CFG, EXPECTED_F64 if f64 else None)
     log(f"kernel gate passed: {json.dumps(rec['gate'])}")
+    if args.pileup:
+        graphs = [g] + [load_rotated(FULL_EVENT, CFG, c, args.pileup,
+                                     device=dev, dtype=dtype)
+                        for c in range(1, args.pileup)]
+        rec["pileup"] = pileup(graphs, CFG)
+        for line in pileup_lines(rec["pileup"]):
+            print(line, file=sys.stderr, flush=True)
+        if pipeline.fallbacks != fallbacks:
+            raise GateError("an event fell back to the host driver")
+        rec["peak_allocated_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                     / 2**30)
+        print(json.dumps({"bench": rec}), file=sys.stderr, flush=True)
+        return 0
     prog = pipeline.captured_program(g, CFG)
     rec["schedule_program"] = {
         "capture_s": prog.capture_seconds,

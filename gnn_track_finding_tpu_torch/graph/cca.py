@@ -104,17 +104,24 @@ def connected_components_fixed(g, edge_ok: torch.Tensor,
     `rounds` is what the adaptive loop reports (its first round that
     changes nothing, counted on the device); `converged` is False when the
     last of the `max_rounds` (default R_CAP) rounds still changed a label,
-    and then the labels may be short of the components."""
+    and then the labels may be short of the components.
+
+    On a stacked batch (g.batch = B > 1) no component crosses an event,
+    so the labels are each event's own (offset by its first node), and
+    `rounds` and `converged` are per event, of shape (B,): what each
+    event's own run reports."""
     max_rounds = R_CAP if max_rounds is None else max_rounds
     n = g.node_mask.shape[0]
+    batch = g.batch
     a, b, ok = _pairs(g, edge_ok)
     init = torch.arange(n, device=a.device)
     f = _first_round(a, b, ok, init, n, group)
-    rounds = torch.ones((), dtype=torch.int64, device=a.device)
-    done = torch.zeros((), dtype=torch.bool, device=a.device)
+    rounds = torch.ones(batch, dtype=torch.int64, device=a.device)
+    done = torch.zeros(batch, dtype=torch.bool, device=a.device)
     for _ in range(max_rounds - 1):
         new = _round(f, a, b, ok, n, group)
         rounds = rounds + (~done).to(torch.int64)
-        done = done | torch.all(new == f)
+        done = done | (new == f).view(batch, -1).all(1)
         f = new
-    return torch.where(g.node_mask, f, init), rounds, done
+    return (torch.where(g.node_mask, f, init), rounds.view(g.event_shape),
+            done.view(g.event_shape))

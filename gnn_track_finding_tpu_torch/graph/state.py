@@ -13,18 +13,30 @@ The JAX package stores them as int32; tests compare values, not dtypes.
 
 A state is immutable by convention: stages return `g.replace(...)` with
 new tensors and never write into the tensors of the state they got.
+
+A state may hold a batch of B events of one pad bucket as their disjoint
+union (stack_events, the counterpart of JAX's leading batch axis,
+parallel/mesh.py:60-66): each field concatenated event after event, so
+that event b's nodes are rows [b*N, (b+1)*N) and its edges rows
+[b*E, (b+1)*E), its node indices (NODE_INDEX_FIELDS) offset by b*N and
+its edge indices (EDGE_INDEX_FIELDS) by b*E.  The reverse of edge e stays
+e ^ 1, since E is even.  Every stage runs on the union unchanged;
+`batch` (B, 1 for one event) tells the extraction and the packing to
+count, cap and pack per event, over (B, N) / (B, E) views.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 # static (host-side) metadata, not tensors
 STATIC_FIELDS = ("n_nodes", "n_edges", "max_degree", "n_layers")
+# static batch metadata of a stacked state (default: one event)
+BATCH_FIELDS = ("batch", "event_nodes", "event_edges")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +99,11 @@ class GraphState:
     mirror: torch.Tensor         # (E,)  tau donor edge (reference set()-order defect)
     mirror_src: torch.Tensor     # (E,)  src[mirror]
 
+    # ---- batch metadata (static); n_nodes / n_edges are the sums ----
+    batch: int = 1                # events in the state
+    event_nodes: Tuple[int, ...] = ()  # each event's true node count
+    event_edges: Tuple[int, ...] = ()  # each event's true edge count
+
     def replace(self, **changes) -> "GraphState":
         return dataclasses.replace(self, **changes)
 
@@ -97,6 +114,12 @@ class GraphState:
     @property
     def num_padded_edges(self) -> int:
         return self.edge_mask.shape[0]
+
+    @property
+    def event_shape(self) -> Tuple[int, ...]:
+        """The leading shape of a per-event result: () for one event, (B,)
+        for a stacked batch of B."""
+        return () if self.batch == 1 else (self.batch,)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -135,7 +158,88 @@ def as_numpy(x) -> np.ndarray:
 
 def tensor_fields():
     return [f.name for f in dataclasses.fields(GraphState)
-            if f.name not in STATIC_FIELDS]
+            if f.name not in STATIC_FIELDS + BATCH_FIELDS]
+
+
+# index fields of a GraphState: node indices, and edge indices (-1 pads
+# the edge tables)
+NODE_INDEX_FIELDS = ("src", "dst", "mirror_src", "component")
+EDGE_INDEX_FIELDS = ("in_edges", "out_edges", "mirror")
+
+
+def _offset(name: str, t: torch.Tensor, batch: int, step: Tuple[int, int],
+            sign: int) -> torch.Tensor:
+    """t, the concatenation of `batch` events' field `name`, with
+    sign * b * N (a node index field) or sign * b * E (an edge index
+    field) added to event b's rows, -1 of the edge tables left as it is;
+    any other field as it is.  step: (N, E) of one event."""
+    if name in NODE_INDEX_FIELDS:
+        by = step[0]
+    elif name in EDGE_INDEX_FIELDS:
+        by = step[1]
+    else:
+        return t
+    v = t.reshape(batch, -1, *t.shape[1:])
+    off = (torch.arange(batch, device=t.device) * (sign * by)).view(
+        batch, *([1] * (v.dim() - 1)))
+    out = v + off
+    if name in ("in_edges", "out_edges"):
+        out = torch.where(v >= 0, out, v)
+    return out.reshape(t.shape)
+
+
+def pad_bucket(g: GraphState) -> tuple:
+    """What events must share to stack: device, dtype, padded N and E, K,
+    layers, and the events already stacked in g."""
+    return (g.device, g.dtype, g.num_padded_nodes, g.num_padded_edges,
+            g.max_degree, g.n_layers, g.batch)
+
+
+def stack_events(graphs: Sequence[GraphState]) -> GraphState:
+    """B events of one pad bucket as one GraphState, their disjoint union
+    (module doc); the state records B and each event's true sizes.  One
+    event comes back as it is.  Raises ValueError unless every event has
+    the same device, dtype and pad bucket (padded N and E, K, layers), as
+    JAX's stacking needs equal shapes."""
+    graphs = list(graphs)
+    if not graphs:
+        raise ValueError("stack_events needs at least one event")
+    g0 = graphs[0]
+    for g in graphs:
+        if pad_bucket(g) != pad_bucket(g0) or g.batch != 1:
+            raise ValueError(f"stack_events takes single events of one pad "
+                             f"bucket, not {pad_bucket(g0)} and "
+                             f"{pad_bucket(g)} (device, dtype, N, E, K, "
+                             "layers, batch)")
+    if len(graphs) == 1:
+        return g0
+    batch = len(graphs)
+    step = (g0.num_padded_nodes, g0.num_padded_edges)
+    return g0.replace(
+        n_nodes=sum(g.n_nodes for g in graphs),
+        n_edges=sum(g.n_edges for g in graphs), batch=batch,
+        event_nodes=tuple(g.n_nodes for g in graphs),
+        event_edges=tuple(g.n_edges for g in graphs),
+        **{name: _offset(name, torch.cat([getattr(g, name) for g in graphs]),
+                         batch, step, 1)
+           for name in tensor_fields()})
+
+
+def unstack_events(g: GraphState) -> List[GraphState]:
+    """Each event's GraphState from a stacked one, its offsets removed:
+    the inverse of stack_events, bitwise (an event's fields that are no
+    index fields are views of g's)."""
+    if g.batch == 1:
+        return [g]
+    batch = g.batch
+    step = (g.num_padded_nodes // batch, g.num_padded_edges // batch)
+    per = {name: _offset(name, t, batch, step, -1).reshape(
+               batch, -1, *t.shape[1:])
+           for name, t in ((n, getattr(g, n)) for n in tensor_fields())}
+    return [g.replace(n_nodes=g.event_nodes[b], n_edges=g.event_edges[b],
+                      batch=1, event_nodes=(), event_edges=(),
+                      **{name: v[b] for name, v in per.items()})
+            for b in range(batch)]
 
 
 def from_numpy(arrays: Dict[str, np.ndarray], *, n_nodes: int, n_edges: int,

@@ -51,7 +51,8 @@ from gnn_track_finding_tpu_torch import _build
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data import native_loader
 from gnn_track_finding_tpu_torch.graph import cca
-from gnn_track_finding_tpu_torch.graph.state import GraphState, tensor_fields
+from gnn_track_finding_tpu_torch.graph.state import (
+    GraphState, stack_events, tensor_fields, unstack_events)
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel, extract,
                                              extrapolate, metadata, priors,
@@ -156,6 +157,8 @@ def reset_reactivate(g: GraphState, cfg: PipelineConfig) -> GraphState:
 
 
 class ScheduleResults(NamedTuple):
+    """One event's results; on a stacked batch of B events every field but
+    `graph` (the union's state) has a leading (B,) axis."""
     graph: GraphState
     acc_count: torch.Tensor     # (I,) accepted candidates per iteration
     acc_nodes: torch.Tensor     # (I, cap, H) accepted heads, -1 padded
@@ -173,21 +176,22 @@ def full_pipeline_results(g: GraphState, cfg: PipelineConfig, group=None,
     result stacked and left on the device: nothing from `prepare` on is
     read on the host, so this is the program a CUDA graph captures (under
     a group: the results the same on every rank, the graph the rank's
-    block)."""
+    block).  On a stacked batch (g.batch = B > 1) the per-event results
+    stack to (B, I, ...)."""
     g = prepare(g, cfg, group)
     res = []
     for i in range(1, cfg.num_iterations + 1):
         g, r = iteration(g, cfg, i, group=group, routing=routing)
         res.append(r)
-    counts = torch.stack([r.acc_count for r in res])
-    cap = res[0].acc_nodes.shape[0]
+    # iterations stack after the batch axis, if any
+    axis = len(g.event_shape)
+    stack = lambda name: torch.stack([getattr(r, name) for r in res], axis)
+    counts = stack("acc_count")
+    acc_nodes = stack("acc_nodes")
     return ScheduleResults(
-        graph=g, acc_count=counts,
-        acc_nodes=torch.stack([r.acc_nodes for r in res]),
-        acc_pvals=torch.stack([r.acc_pvals for r in res]),
-        cca_rounds=torch.stack([r.cca_rounds for r in res]),
-        overflow=(counts > cap) | ~torch.stack([r.cca_converged
-                                                for r in res]))
+        graph=g, acc_count=counts, acc_nodes=acc_nodes,
+        acc_pvals=stack("acc_pvals"), cca_rounds=stack("cca_rounds"),
+        overflow=(counts > acc_nodes.shape[-2]) | ~stack("cca_converged"))
 
 
 def exact_results(out: "PipelineResult") -> ScheduleResults:
@@ -243,25 +247,30 @@ def pack_results(counts: torch.Tensor, nodes: torch.Tensor,
     counts, the node ids (uint16 pairs when narrow, -1 -> sentinel 0xFFFF,
     an odd count padded with one sentinel; int32 otherwise) and the
     p-values' raw bits (float64 as two little-endian words each, anything
-    else as float32).  unpack_results is its inverse."""
-    n_it, cap, track_len = nodes.shape
-    flat = nodes.reshape(-1).to(torch.int64)
+    else as float32).  unpack_results is its inverse.  With leading batch
+    axes (counts (B, I), ...) each event packs to its own row of words,
+    (B, words)."""
+    *lead, n_it, cap, track_len = nodes.shape
+    rows = int(np.prod(lead))
+    flat = nodes.reshape(rows, -1).to(torch.int64)
     if narrow:
         # the low 16 bits as the int16 of the same bit pattern
         lo = ((flat & 0xFFFF) ^ 0x8000) - 0x8000
         nd = lo.to(torch.int16)
-        if nd.shape[0] % 2:
-            nd = torch.cat([nd, torch.full((1,), -1, dtype=torch.int16,
-                                           device=nd.device)])
+        if nd.shape[1] % 2:
+            nd = torch.cat([nd, torch.full((rows, 1), -1, dtype=torch.int16,
+                                           device=nd.device)], dim=1)
         nd32 = nd.view(torch.int32)
     else:
         nd32 = flat.to(torch.int32)
     pv_wide = pvals.dtype == torch.float64
-    pv = pvals.reshape(-1)
+    pv = pvals.reshape(rows, -1)
     pv32 = pv.view(torch.int32) if pv_wide else \
         pv.to(torch.float32).view(torch.int32)
     header = _words([cap, track_len, int(narrow), int(pv_wide)], nodes)
-    return torch.cat([header, counts.to(torch.int32), nd32, pv32])
+    return torch.cat([header.expand(rows, 4),
+                      counts.reshape(rows, n_it).to(torch.int32), nd32, pv32],
+                     dim=1).reshape(*lead, -1)
 
 
 def unpack_results(buf: np.ndarray, n_it: int):
@@ -291,17 +300,25 @@ def unpack_results(buf: np.ndarray, n_it: int):
     return counts, nodes, pvals, sentinel
 
 
+def packed_words(res: ScheduleResults) -> torch.Tensor:
+    """The whole host readback of full_pipeline_results in one flat int32
+    tensor (JAX pipeline.py:322-336): pack_results' layout, then the
+    FastSV rounds (I,) and the overflow flags (I,), one word each; on a
+    stacked batch one such row per event, (B, words), each in the layout
+    of the event's own run (narrow ids when one event's nodes fit)."""
+    g = res.graph
+    narrow = g.num_padded_nodes // g.batch <= 0xFFFF   # ids < sentinel
+    return torch.cat([
+        pack_results(res.acc_count, res.acc_nodes, res.acc_pvals, narrow),
+        res.cca_rounds.to(torch.int32), res.overflow.to(torch.int32)], dim=-1)
+
+
 def full_pipeline_packed(g: GraphState, cfg: PipelineConfig
                          ) -> Tuple[GraphState, torch.Tensor]:
-    """full_pipeline_results with the whole host readback in one flat
-    int32 tensor (JAX pipeline.py:322-336): pack_results' layout, then
-    the FastSV rounds (I,) and the overflow flags (I,), one word each.
-    -> (final graph, packed); the graph stays on the device."""
+    """full_pipeline_results with its readback packed (packed_words) ->
+    (final graph, packed); the graph stays on the device."""
     res = full_pipeline_results(g, cfg)
-    narrow = g.num_padded_nodes <= 0xFFFF     # ids <= n_pad - 1 < sentinel
-    return res.graph, torch.cat([
-        pack_results(res.acc_count, res.acc_nodes, res.acc_pvals, narrow),
-        res.cca_rounds.to(torch.int32), res.overflow.to(torch.int32)])
+    return res.graph, packed_words(res)
 
 
 @dataclasses.dataclass
@@ -368,13 +385,15 @@ def run_pipeline_eager(g: GraphState, cfg: PipelineConfig) -> PipelineResult:
 def program_key(g: GraphState, cfg: PipelineConfig, group=None,
                 routing=None) -> tuple:
     """What a captured program depends on: the device, dtype and pad
-    bucket (padded N and E, K, layers) and the config, never the event's
-    true sizes (the counterpart of JAX's _normalize_static,
-    pipeline.py:438-449), plus the head cap and the FastSV rounds; under
+    bucket (padded N and E, K, layers), the events stacked in it and the
+    config, never the events' true sizes (the counterpart of JAX's
+    _normalize_static, pipeline.py:438-449), plus the head cap and the
+    FastSV rounds; under
     an edge partition also the group, its size, this rank, the backend
     and the routing's bucket (its all_to_all split)."""
     key = (g.device, g.dtype, g.num_padded_nodes, g.num_padded_edges,
-           g.max_degree, g.n_layers, cfg, extract.ACC_PULL_CAP, cca.R_CAP)
+           g.max_degree, g.n_layers, g.batch, cfg, extract.ACC_PULL_CAP,
+           cca.R_CAP)
     if group is None:
         return key
     return key + (group, dist.get_world_size(group), dist.get_rank(group),
@@ -389,12 +408,14 @@ def _routing_tensors(routing) -> dict:
 
 
 class _Slot:
-    """A pinned host buffer for one event's packed readback, and the CUDA
-    event recorded after its copy."""
+    """A pinned host buffer for one replay's packed readback (one row per
+    event of a batch), the CUDA event recorded after its copy, and the
+    events whose results have not been read from it yet."""
 
     def __init__(self, like: torch.Tensor):
         self.buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
         self.copied = torch.cuda.Event()
+        self.unread = 0
 
 
 def kernel_launches() -> dict:
@@ -438,13 +459,17 @@ class CapturedGraph:
 
 
 class CapturedSchedule(CapturedGraph):
-    """full_pipeline_packed of one pad bucket, captured once as one CUDA
-    graph and replayed per event (`launch`); under an edge partition
-    (`group`, `routing`: an NCCL group on the card) the rank's
-    full_pipeline_results, its collectives inside the graph, with the
-    routing's tensors among the inputs (`replay`).  Every rank of the
-    group captures in lockstep: the same ops and collectives in the same
-    order, since each runs the same program.
+    """full_pipeline_results of one pad bucket and its packed readback
+    (packed_words), captured once as one CUDA graph and replayed per
+    event (`launch` for the packed readback, `replay` for the results on
+    the device); under an edge partition (`group`, `routing`: an NCCL
+    group on the card) the rank's full_pipeline_results, its collectives
+    inside the graph, with the routing's tensors among the inputs
+    (`replay`).  Every rank of the group captures in lockstep: the same
+    ops and collectives in the same order, since each runs the same
+    program.  A stacked batch of B events (graph/state.stack_events) is
+    one program of its own (program_key holds B): one replay runs all B
+    events and one readback brings back their B rows.
 
     A prefetch thread may go on building the next event on the device
     while the capture (CapturedGraph._capture) runs.  The program's
@@ -463,11 +488,15 @@ class CapturedSchedule(CapturedGraph):
         _build.library()                      # nvcc outside the capture
         self.inputs = {name: getattr(g, name).clone()
                        for name in tensor_fields()}
-        static = g.replace(n_nodes=0, n_edges=0, **self.inputs)
+        static = g.replace(n_nodes=0, n_edges=0, event_nodes=(),
+                           event_edges=(), **self.inputs)
         self.routing_inputs = {}
         if group is None:
-            self.out, self.packed = self._capture(
-                lambda: full_pipeline_packed(static, cfg), g.device)
+            def body():
+                res = full_pipeline_results(static, cfg)
+                return res, packed_words(res)
+            self.results, self.packed = self._capture(body, g.device)
+            self.out = self.results.graph
         else:
             self.routing_inputs = {name: t.clone() for name, t in
                                    _routing_tensors(routing).items()}
@@ -480,31 +509,51 @@ class CapturedSchedule(CapturedGraph):
 
     def launch(self, g: GraphState) -> "_Pending":
         """Enqueue one event on the current stream; nothing waits."""
+        if g.batch != 1:
+            raise ValueError("launch takes one event; launch_batch a batch")
+        return self.launch_batch(g)[0]
+
+    def launch_batch(self, g: GraphState,
+                     events: List[GraphState] | None = None
+                     ) -> List["_Pending"]:
+        """Enqueue one replay of a stacked batch (or of one event) on the
+        current stream; nothing waits.  -> one _Pending per event, all
+        sharing the replay and the one readback.  `events`: the batch's
+        own states, which an overflowed event reruns from (default:
+        unstacked from g)."""
         for name, t in self.inputs.items():
             t.copy_(getattr(g, name))
         self.graph.replay()
-        g_out = clone_state(self.out).replace(n_nodes=g.n_nodes,
-                                              n_edges=g.n_edges)
+        g_out = _sized_like(clone_state(self.out), g)
         slot = self._free.pop() if self._free else _Slot(self.packed)
         slot.buf.copy_(self.packed, non_blocking=True)
         slot.copied.record()
-        return _Pending(self, g, g_out, slot)
+        slot.unread = g.batch
+        return [_Pending(self, g_in, g_b, slot, b) for b, (g_in, g_b) in
+                enumerate(zip(events or unstack_events(g),
+                              unstack_events(g_out)))]
 
-    def replay(self, g: GraphState, routing) -> ScheduleResults:
-        """One edge-partitioned event (this rank's block g and routing):
-        inputs copied in, the graph replayed, every result cloned out, on
-        the current stream; nothing is read on the host."""
+    def replay(self, g: GraphState, routing=None) -> ScheduleResults:
+        """One replay with every result cloned out, on the current
+        stream; nothing is read on the host.  Under an edge partition g
+        and routing are this rank's block and routing."""
         for name, t in self.inputs.items():
             t.copy_(getattr(g, name))
-        for name, t in _routing_tensors(routing).items():
-            self.routing_inputs[name].copy_(t)
+        if routing is not None:
+            for name, t in _routing_tensors(routing).items():
+                self.routing_inputs[name].copy_(t)
         self.graph.replay()
         r = self.results
         return ScheduleResults(
-            graph=clone_state(r.graph).replace(n_nodes=g.n_nodes,
-                                               n_edges=g.n_edges),
+            graph=_sized_like(clone_state(r.graph), g),
             **{k: getattr(r, k).clone() for k in ScheduleResults._fields
                if k not in ("graph", "path")}, path="captured")
+
+
+def _sized_like(g_out: GraphState, g: GraphState) -> GraphState:
+    """g_out with g's true sizes (a captured program holds none)."""
+    return g_out.replace(n_nodes=g.n_nodes, n_edges=g.n_edges,
+                         event_nodes=g.event_nodes, event_edges=g.event_edges)
 
 
 def clone_state(g: GraphState) -> GraphState:
@@ -514,17 +563,24 @@ def clone_state(g: GraphState) -> GraphState:
 
 
 class _Pending:
-    """An event in flight: its result once the readback has landed."""
+    """An event in flight: its result once the readback has landed (row
+    `row` of the readback: the event's place in its batch)."""
 
-    def __init__(self, program: CapturedSchedule, g_in, g_out, slot: _Slot):
+    def __init__(self, program: CapturedSchedule, g_in, g_out, slot: _Slot,
+                 row: int):
         self.program, self.g_in, self.g_out, self.slot = (program, g_in,
                                                           g_out, slot)
+        self.row = row
 
     def result(self) -> PipelineResult:
         self.slot.copied.synchronize()
-        out = unpack_packed(self.g_in, self.g_out, self.slot.buf.numpy(),
+        buf = self.slot.buf.numpy()
+        out = unpack_packed(self.g_in, self.g_out,
+                            buf.reshape(-1, buf.shape[-1])[self.row],
                             self.program.cfg)
-        self.program._free.append(self.slot)
+        self.slot.unread -= 1
+        if not self.slot.unread:
+            self.program._free.append(self.slot)
         return out
 
 
@@ -733,3 +789,61 @@ def stream_pipeline(graphs: Iterable[GraphState], cfg: PipelineConfig,
             yield pending.popleft().result()
     while pending:
         yield pending.popleft().result()
+
+
+# ------------------------------------------------------------ event batch
+
+def run_pipeline_batched(graphs: List[GraphState], cfg: PipelineConfig,
+                         eager: bool = False) -> List[PipelineResult]:
+    """B events of one pad bucket as one program (the production driver
+    over JAX's vmapped batch, parallel/mesh.py:69-89): their disjoint
+    union (stack_events) dispatched once — on a CUDA device one
+    replay of the batch's captured program and one readback — then each
+    event's row unpacked as run_pipeline_fast unpacks it.  An event that
+    overflowed reruns alone through the exact driver from its own state
+    and is counted in `fallbacks`; the others keep the batched result.
+    eager: run the program op by op on any device (what the captured
+    replay is held to).  -> one PipelineResult per event, in order."""
+    g = stack_events(graphs)
+    if g.device.type == "cuda" and not eager:
+        return [p.result() for p in
+                captured_program(g, cfg).launch_batch(g, list(graphs))]
+    g_out, packed = full_pipeline_packed(g, cfg)
+    buf = packed.reshape(g.batch, -1).cpu().numpy()
+    return [unpack_packed(g_in, g_b, row, cfg) for g_in, g_b, row in
+            zip(graphs, unstack_events(_sized_like(g_out, g)), buf)]
+
+
+def run_schedule_batched(graphs: List[GraphState], cfg: PipelineConfig
+                         ) -> List[ScheduleResults]:
+    """B events of one pad bucket as one program, their results left on
+    the device: full_pipeline_results of the union (on a CUDA device a
+    replay of the batch's captured program, path "captured"; eagerly
+    otherwise, path "eager"), split per event with each event's state
+    unstacked; one host read of the overflow flags, and an overflowed
+    event rerun alone by the exact driver (path "exact", counted in
+    `fallbacks`)."""
+    global fallbacks
+    g = stack_events(graphs)
+    if g.device.type == "cuda":
+        res = captured_program(g, cfg).replay(g)
+    else:
+        res = full_pipeline_results(g, cfg)
+    lead = len(g.event_shape)
+    fields = [k for k in ScheduleResults._fields if k not in ("graph",
+                                                              "path")]
+    # every per-event field with a leading (B,) axis, also for B = 1
+    res = res._replace(**{k: getattr(res, k).reshape(
+        g.batch, *getattr(res, k).shape[lead:]) for k in fields})
+    over = res.overflow.any(dim=1).tolist()
+    out = []
+    for b, g_b in enumerate(unstack_events(res.graph)):
+        if over[b]:
+            fallbacks += 1
+            out.append(exact_results(run_pipeline(graphs[b], cfg,
+                                                  host_cca=False)))
+        else:
+            out.append(ScheduleResults(
+                graph=g_b, **{k: getattr(res, k)[b] for k in fields},
+                path=res.path))
+    return out

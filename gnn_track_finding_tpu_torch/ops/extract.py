@@ -18,6 +18,7 @@ bug_compat reproduces the rotation typo (extract_track_candidates.py:
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -50,6 +51,15 @@ class ExtractionResult(NamedTuple):
     acc_pvals: torch.Tensor     # (cap, 2) their (pval_xy, pval_zr), 0 padded
     cca_rounds: torch.Tensor    # () FastSV hooking rounds (0: labels given)
     cca_converged: torch.Tensor  # () bool: the labels are the components
+    # On a stacked batch of B events (g.batch > 1) the last five fields
+    # are per event, with a leading (B,) axis: each event's own count,
+    # head (its own cap, node ids local to the event) and FastSV verdict.
+
+
+def candidate_rows(n: int, min_hits: int) -> int:
+    """C, the candidate rows of an event of n padded nodes: a multiple of
+    64 above n // min_hits + 1 (the last row is the scatter dump)."""
+    return -(-(n // min_hits + 1) // 64) * 64
 
 
 def _candidate_matrix(g: GraphState, labels: torch.Tensor, h: int,
@@ -59,7 +69,7 @@ def _candidate_matrix(g: GraphState, labels: torch.Tensor, h: int,
     of 64 above N // min_hits + 1; the last row is the scatter dump."""
     n = g.num_padded_nodes
     dev = g.device
-    c = -(-(n // min_hits + 1) // 64) * 64
+    c = candidate_rows(n, min_hits)
     alive = g.node_mask
     lab = torch.where(alive, labels, n)
 
@@ -312,8 +322,8 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
         labels, rounds, converged = cca.connected_components_fixed(
             g, g.edge_mask & g.active, group=group)
     else:
-        rounds = torch.zeros((), dtype=torch.int64, device=dev)
-        converged = torch.ones((), dtype=torch.bool, device=dev)
+        rounds = torch.zeros(g.event_shape, dtype=torch.int64, device=dev)
+        converged = torch.ones(g.event_shape, dtype=torch.bool, device=dev)
     mat, size, row_of_node = _candidate_matrix(g, labels, h,
                                                cfg.min_track_hits)
     big_enough = size >= cfg.min_track_hits
@@ -338,22 +348,45 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
 
     accepted = (processed & (pval_xy >= cfg.track_acceptance_pval)
                 & (pval_zr >= cfg.track_acceptance_pval))
-    # the static head: accepted row r goes to head row rank(r) while that
-    # is under the cap; every other row to a dump row that is sliced off
-    cap = min(ACC_PULL_CAP, c)
-    rank_acc = torch.cumsum(accepted, dim=0) - 1
-    dest = torch.where(accepted & (rank_acc < cap), rank_acc, cap)
-    acc_nodes = torch.full((cap + 1, h_), -1, dtype=mat.dtype, device=dev)
-    acc_nodes[dest] = mat
-    acc_pvals = torch.zeros((cap + 1, 2), dtype=pval_xy.dtype, device=dev)
-    acc_pvals[dest] = torch.stack([pval_xy, pval_zr], dim=1)
+    acc_count, acc_nodes, acc_pvals = _accepted_heads(
+        mat, accepted, torch.stack([pval_xy, pval_zr], dim=1),
+        g.event_shape, g.num_padded_nodes // g.batch, cfg.min_track_hits)
     return ExtractionResult(
         labels=labels, row_of_node=row_of_node, cand_nodes=mat,
         cand_size=size, processed=processed, accepted=accepted,
         merged_pair=n_pairs, pval_xy=pval_xy, pval_zr=pval_zr,
-        acc_count=torch.sum(accepted), acc_nodes=acc_nodes[:cap],
-        acc_pvals=acc_pvals[:cap], cca_rounds=rounds,
-        cca_converged=converged)
+        acc_count=acc_count, acc_nodes=acc_nodes, acc_pvals=acc_pvals,
+        cca_rounds=rounds, cca_converged=converged)
+
+
+def _accepted_heads(mat, accepted, pvals, event_shape, n_event: int,
+                    min_hits: int):
+    """The static heads: each event ranks its own accepted rows (candidate
+    rows come in event order, since labels are node indices), and
+    accepted row r goes to its event's head row rank(r) while that is
+    under the cap, every other row to a dump row that is sliced off; node
+    ids are local to the event.  The cap is that of one event of n_event
+    padded nodes.  -> (count, nodes (cap, H), pvals (cap, 2)), each with
+    the leading event_shape: () for one event, (B,) for a batch."""
+    batch = math.prod(event_shape)
+    cap = min(ACC_PULL_CAP, candidate_rows(n_event, min_hits))
+    dev = mat.device
+    rank_acc = torch.cumsum(accepted, dim=0) - 1
+    # each row's event, from its first node (an empty row is never accepted)
+    event = torch.where(mat[:, 0] >= 0, mat[:, 0] // n_event, batch)
+    count = count_by(event, accepted, batch)
+    rank = rank_acc - (torch.cumsum(count, dim=0) - count)[
+        torch.clamp(event, max=batch - 1)]
+    ok = accepted & (rank < cap)
+    at = (torch.where(ok, event, 0), torch.where(ok, rank, cap))
+    nodes = torch.full((batch, cap + 1, mat.shape[1]), -1, dtype=mat.dtype,
+                       device=dev)
+    nodes[at] = torch.where(mat >= 0, mat - event[:, None] * n_event, -1)
+    heads = torch.zeros((batch, cap + 1, 2), dtype=pvals.dtype, device=dev)
+    heads[at] = pvals
+    return (count.view(event_shape),
+            nodes[:, :cap].reshape(*event_shape, cap, mat.shape[1]),
+            heads[:, :cap].reshape(*event_shape, cap, 2))
 
 
 def accepted_rows(res: ExtractionResult):

@@ -7,6 +7,12 @@ row form an "edge" group, which splits one event's edge arrays
 (parallel/edge_shard.py); the ranks of one column form a "data" group,
 over which the events of a batch are spread.  Where JAX runs one program
 over the device mesh, every rank calls `run_batched` with its own mesh.
+
+JAX stacks a batch's events on a leading axis and vmaps the schedule
+(`stack_events`, mesh.py:60-66).  Here a batch is the events' disjoint
+union (graph/state.stack_events, re-exported under JAX's name): every
+stage runs unchanged over B*N nodes and B*E edges, each kernel launch
+covering the whole batch.
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ from typing import List, Sequence, Tuple
 
 import torch.distributed as dist
 
+from gnn_track_finding_tpu_torch.graph.state import (  # noqa: F401
+    pad_bucket, stack_events, unstack_events)
 from gnn_track_finding_tpu_torch.models import pipeline
 from gnn_track_finding_tpu_torch.parallel import edge_shard
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -64,21 +71,67 @@ def event_slice(num_events: int, index: int, count: int) -> Tuple[int, int]:
     return index * per, min((index + 1) * per, num_events)
 
 
+# padded nodes per batched program: eight full events (57,344 padded
+# nodes each; 25-29 GiB peak allocated at float32 on an H100, PERF.md
+# section 5), so that a long slice runs in chunks of bounded memory
+MAX_BATCH_NODES = 8 * 57_344
+
+
+def batch_chunks(graphs: Sequence) -> List[List[int]]:
+    """The events' indices grouped by pad bucket (in order of first
+    appearance, each group in event order) and each group cut into
+    chunks of at most MAX_BATCH_NODES padded nodes, one event at least:
+    the batches that run as one program each."""
+    groups = {}
+    for i, g in enumerate(graphs):
+        groups.setdefault(pad_bucket(g), []).append(i)
+    out = []
+    for idx in groups.values():
+        per = max(1, MAX_BATCH_NODES // graphs[idx[0]].num_padded_nodes)
+        out += [idx[k:k + per] for k in range(0, len(idx), per)]
+    return out
+
+
+def _run_one_program_each(graphs: Sequence, cfg, first: int = 0
+                          ) -> List[Tuple[int, pipeline.ScheduleResults]]:
+    """graphs in batch_chunks' batches, each one program
+    (pipeline.run_schedule_batched) -> (first + event index, results),
+    in event order."""
+    out = []
+    for chunk in batch_chunks(graphs):
+        out += zip((first + i for i in chunk), pipeline.run_schedule_batched(
+            [graphs[i] for i in chunk], cfg))
+    return sorted(out, key=lambda pair: pair[0])
+
+
 def run_batched(graphs: Sequence, cfg, mesh: Mesh | None = None
                 ) -> List[Tuple[int, pipeline.ScheduleResults]]:
-    """Run the schedule over a batch of events on the mesh: data rank i
-    takes its contiguous slice of the batch, and each of its events runs
-    edge-partitioned over its edge group (edge_shard.run_sharded: the
-    routing built on the host, then on an NCCL group a replay of the
-    rank's captured program).
+    """Run the schedule over a batch of events (JAX mesh.py:69-89).
+
+    With no mesh and no process group: JAX's one-device call, the batch
+    as one program on the graphs' device (pipeline.run_schedule_batched:
+    their union, on a CUDA device one replay of its captured program).
+    On a mesh, data rank i takes its contiguous slice of the batch; where
+    the edge group has one rank the slice runs the same way, with no
+    collective, and otherwise each event runs edge-partitioned over the
+    edge group (edge_shard.run_sharded: the routing built on the host,
+    then on an NCCL group a replay of the rank's captured program).
+    Where JAX needs one pad bucket, the events here are grouped by
+    bucket, and a group over MAX_BATCH_NODES runs in chunks
+    (batch_chunks): one program per chunk.
 
     graphs: the batch's whole GraphStates, on this rank's device.  Returns
-    (event index, results) for this rank's events, each graph gathered
-    whole (edge_shard.gather_graph); per-event results equal the
-    single-device run's (tests/test_torch_parallel.py)."""
+    (event index, results) for this rank's events, in order, each with
+    its own state (unstacked, or gathered whole) and `path` ("captured",
+    "eager" or "exact"); per-event results equal the single-device run's
+    (tests/test_torch_batched.py, tests/test_torch_parallel.py)."""
+    if mesh is None and not (dist.is_available() and dist.is_initialized()):
+        return _run_one_program_each(list(graphs), cfg)
     mesh = mesh or make_mesh()
     d = mesh.shape[1]
     lo, hi = event_slice(len(graphs), mesh.data_index, mesh.shape[0])
+    if d == 1:
+        return _run_one_program_each(list(graphs[lo:hi]), cfg, lo)
     out = []
     for i in range(lo, hi):
         g = graphs[i]

@@ -91,3 +91,45 @@ def test_bench_cli_requires_cuda():
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert "metric" not in proc.stdout
+
+
+def test_pileup_on_two_toy_events_eager():
+    """--pileup's comparison, the body the card runs, on CPU tensors
+    (where run_pipeline_fast and run_pipeline_batched run eagerly): two
+    distinct toy events of one pad bucket, equal checksums on both
+    paths, bench_pileup's three records."""
+    graphs = []
+    for seed in (11, 23):
+        ev = toymc.generate_event(seed=seed, num_tracks=20,
+                                  edge_dphi_window=0.12)
+        graphs.append(build_graph_state(ev.xyzr, ev.vivl, ev.truth,
+                                        ev.edge_pairs, CFG, device="cpu"))
+    rec = bench.pileup(graphs, CFG, n_rep=1)
+    want = [len(pipeline.run_pipeline_fast(g, CFG).candidates)
+            for g in graphs]
+    assert rec["candidates_per_event"] == want and all(want)
+    assert rec["sequential_checksum"] == rec["batched_checksum"] == sum(want)
+    assert rec["batch"] == 2 and rec["speedup"] > 0
+    lines = bench.pileup_lines(rec)
+    assert [line.split()[1] for line in lines] == [
+        "sequential", "batched(B=2)", "batching"]
+
+
+def test_rotated_copy_is_the_same_graph():
+    """A rotated copy keeps the graph and r and moves (x, y) by the angle;
+    copy 0 is the event itself."""
+    path = REPO / ".event_cache" / "event_fafb3309e4598e9b.npz"
+    cfg = PipelineConfig()
+    g0 = bench.load_rotated(path, cfg, 0, 4, device="cpu",
+                            dtype=torch.float64)
+    g1 = bench.load_rotated(path, cfg, 1, 4, device="cpu",
+                            dtype=torch.float64)
+    n = g0.n_nodes
+    assert torch.equal(g0.xyzr, bench.load_event(
+        path, cfg, device="cpu", dtype=torch.float64).xyzr)
+    assert torch.equal(g0.src, g1.src) and torch.equal(g0.mirror, g1.mirror)
+    assert torch.equal(g0.xyzr[:, 2:], g1.xyzr[:, 2:])
+    torch.testing.assert_close(g1.xyzr[:n, 0], -g0.xyzr[:n, 1], rtol=0,
+                               atol=1e-12)
+    torch.testing.assert_close(g1.xyzr[:n, 1], g0.xyzr[:n, 0], rtol=0,
+                               atol=1e-12)

@@ -9,7 +9,8 @@ same run on the CPU), and the edge-partitioned schedule on the card (2
 gloo ranks on one card, 1 NCCL rank, the clustering kernel on routed
 owner rows, the NCCL rank's schedule captured as one CUDA graph and
 replayed by run_sharded and run_batched), and the bench's gate, captured
-message-passing loop and schedule timing on volume 7.
+message-passing loop and schedule timing on volume 7, and B events of one
+pad bucket as one captured program (parallel/mesh.stack_events).
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -404,8 +405,10 @@ def test_nccl_rank_replays_the_captured_sharded_schedule(sharded_volume7):
 
 @pytest.mark.gpu
 def test_run_batched_replays_one_program_per_nccl_rank(sharded_volume7):
-    """run_batched on a (1, 1) NCCL mesh, volume 7 twice: one program
-    captured, each event a replay bitwise the single-device run."""
+    """run_batched on a (1, 1) NCCL mesh, volume 7 twice: the two events
+    as one batched program (an edge group of one rank needs no
+    collective), one program captured, each event of its replay bitwise
+    the single-device run."""
     runs, ref = sharded_volume7
     got = runs["nccl_batched"]
     assert sorted(got) == [0, 1]
@@ -496,6 +499,45 @@ def test_two_events_of_one_bucket_share_one_program(cuda):
         assert not _bitwise_diff(out, pipeline.run_pipeline_eager(g, cfg))
         assert (out.graph.n_nodes, out.graph.n_edges) == (g.n_nodes,
                                                           g.n_edges)
+    pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("event", ["toys", "volume7"])
+def test_batched_replay_equals_eager_and_single_replays(cuda, event):
+    """B events of one pad bucket as one captured program (distinct toys,
+    or volume 7 in 4 copies rotated about the beam axis): the first call
+    (the capture) and a replay are, event by event, bitwise the batched
+    eager run and the event's own single-event replay (candidates,
+    p-values, FastSV rounds, every field of the final state), with both
+    kernels in the batched graph and no fallback."""
+    from gnn_track_finding_tpu_torch.parallel import mesh
+    pipeline.clear_programs()
+    if event == "toys":
+        cfg = _toy_graph(cuda)[1]
+        graphs = [_toy_graph(cuda, seed=s, num_tracks=t)[0]
+                  for s, t in ((3, 40), (5, 45), (7, 42))]
+    else:
+        cfg = CFG
+        graphs = [bench.load_rotated(VOL7_NPZ, cfg, b, 4, device=cuda,
+                                     dtype=torch.float64) for b in range(4)]
+    before = pipeline.fallbacks
+    singles = [pipeline.run_pipeline_fast(g, cfg) for g in graphs]
+    first = pipeline.run_pipeline_batched(graphs, cfg)
+    prog = pipeline.captured_program(mesh.stack_events(graphs), cfg)
+    assert prog.launches == {"gmr_cluster": 2, "distinct_counts": 3}
+    replayed = pipeline.run_pipeline_batched(graphs, cfg)
+    eager = pipeline.run_pipeline_batched(graphs, cfg, eager=True)
+    for b, single in enumerate(singles):
+        assert single.candidates
+        for got in (first[b], replayed[b]):
+            assert not _bitwise_diff(got, eager[b]), b
+            assert not _bitwise_diff(got, single), b
+    assert pipeline.fallbacks == before
+    if event == "volume7":
+        per_it = [sum(1 for c in first[0].candidates if c.iteration == i)
+                  for i in (1, 2, 3)]
+        assert per_it == [1055, 110, 2]
     pipeline.clear_programs()
 
 

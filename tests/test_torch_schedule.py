@@ -73,6 +73,42 @@ def test_full_pipeline_results_matches_jax(seed):
                                        pvals[it, :n, col], rtol=rtol, atol=0)
 
 
+def test_stacked_events_match_jax_per_event():
+    """Three distinct toy events of one pad bucket (seeds 11, 23 and 3:
+    N = 192, E = 512, the shapes seeds 11 and 23 compile above) stacked
+    as one program (mesh.stack_events): each event against JAX's packed
+    schedule of that event (its unpack_results), counts and heads (node
+    ids local to the event) exact, pval_xy rtol 1e-9, pval_zr rtol 1e-8;
+    JAX reports no FastSV rounds, so each event's rounds, overflow flags
+    and final state are held to the port's single-event run, bitwise (JAX
+    tests/test_parallel.py:14-49 pins its vmap to the single-device run
+    the same way)."""
+    pairs = [_toy(seed) for seed in (11, 23, 3)]
+    graphs = [g for _, g in pairs]
+    assert len({(g.n_nodes, g.n_edges) for g in graphs}) == 3
+    batched = pipeline.run_schedule_batched(graphs, CFG)
+    for (jg, g), res in zip(pairs, batched):
+        packed = jax_pipeline.full_pipeline_packed(
+            jax_pipeline._normalize_static(jg), JCFG)[1]
+        counts, nodes, pvals, sentinel = jax_pipeline.unpack_results(
+            np.asarray(packed), JCFG.num_iterations)
+        assert res.acc_count.tolist() == counts.tolist() and counts.sum() > 0
+        assert res.path == "eager" and not res.overflow.any()
+        heads = res.acc_nodes.numpy()
+        for it, n in enumerate(counts):
+            want = np.where(nodes[it, :n] == sentinel, -1, nodes[it, :n])
+            np.testing.assert_array_equal(heads[it, :n], want)
+            assert (heads[it, n:] == -1).all()
+            for col, rtol in ((0, 1e-9), (1, 1e-8)):
+                np.testing.assert_allclose(res.acc_pvals[it, :n, col].numpy(),
+                                           pvals[it, :n, col], rtol=rtol,
+                                           atol=0)
+        single = pipeline.full_pipeline_results(g, CFG)
+        assert not testing.bitwise_fields(res, single)
+        assert (res.graph.n_nodes, res.graph.n_edges) == (g.n_nodes,
+                                                          g.n_edges)
+
+
 def test_bench_full_pipeline_accepted_sum():
     """The bench's full-schedule timing (eager on CPU tensors) accepts, over
     its 3 schedules, 3 x the candidates of JAX's packed schedule."""
