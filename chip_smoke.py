@@ -145,7 +145,30 @@ program run op by op), so their rows stay comparable with earlier runs:
      volume 7 at B = 1, 8, 32 (float32), with the device time of one
      replay, capture and instantiate seconds, the graph pool, the peak
      allocation and the launches per replay.  Its record, with the card,
-     is printed as one JSON line, {"event_batch": ...}.
+     is printed as one JSON line, {"event_batch": ...};
+ 14. batched x edge-sharded execution at float64 (parallel/mesh.run_batched
+     and edge_shard.run_sharded on a stack: a data rank's events as their
+     union, edge-partitioned as one program per rank), on rotated copies
+     of the full event.  2 gloo ranks on cuda:0 run run_batched on a
+     (1, 2) mesh over 2 copies: one program per rank (64 collectives, 2
+     gmr_cluster and 3 distinct_counts launches per rank, not per event),
+     path "eager", each event's candidates exact against its own
+     single-device replay and its gathered state within the sharded bars
+     (bitwise but grad_stats' variances, to 1e-12 of their second
+     moment), copy 0 at the reference's counts, both kernels bitwise
+     against their plain versions on each rank's owner rows of the union;
+     per-rank live edges, peak allocation and the wall per batch against
+     the 2 events through run_sharded in turn.  1 NCCL rank runs the
+     4-copy stack through run_sharded: one captured program, its first
+     call, a replay and a replay under torch.cuda.set_sync_debug_mode
+     ("error") bitwise the eager body, each event bitwise its
+     single-device batched replay, 2 / 3 launches per replay; capture,
+     instantiate, pool, one replay's device time, events/s against 4
+     single-event sharded replays in turn; both kernels' device times,
+     plain times and bounds on the union's owner rows; then
+     multihost.scaling_report over the 4 copies (sequential single-event
+     replays against one batched program), its checksums equal.  Its
+     record is printed as one JSON line, {"batched_sharded": ...}.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -606,6 +629,64 @@ def calibration_phase(card, cuda, graph, counts, events):
     return lut_record, calibrated_launches
 
 
+def owner_rows_records(inputs, cfg, cuda, label) -> dict:
+    """Both kernels on one rank's owner rows of the sharded schedule
+    (testing._owner_kernel_checks' inputs: both clustering rounds and the
+    first reweight pass), each against its plain version, with its device
+    time (L2 flushed and warm), the plain version's time and its bound;
+    printed and returned by kernel."""
+    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                                 distinct_kernel)
+    f64 = torch.float64
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
+    owner = {}
+    put = lambda a: torch.from_numpy(a).to(cuda)
+    for rnd in ("seed", "updated"):
+        a = inputs[f"cluster_{rnd}"]
+        x = clustering.CoreInputs(
+            ids=None, tab=put(a["tab"]),
+            states=cluster_kernel.unpack_states(put(a["packed"])),
+            node_xyzr=put(a["node_xyzr"]), klthr=put(a["klthr"]),
+            chi2_thr=a["chi2_thr"], member_slot=None, count=put(a["count"]))
+        args = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
+        err = core_case(f"owner rows ({label}), {rnd} round float64", args,
+                        cfg, x.chi2_thr, check_found=int(x.count) > 0)
+
+        def run():
+            return cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr,
+                                               cfg=cfg)
+
+        rec = {"rows": int(x.tab.shape[0]), "live_rows": int(x.count),
+               "max_abs_err": err,
+               "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
+               "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
+                   *args, chi2_thr=x.chi2_thr, cfg=cfg), reps=5),
+               **cluster_bound(x, run(), cfg)}
+        owner[f"gmr_cluster {rnd}"] = rec
+    a = inputs["distinct"]
+    ok, xx, nx = put(a["ok"]), put(a["x"]), put(a["node_x"])
+    run = lambda: distinct_kernel.distinct_counts(ok, xx, nx)
+    check(torch.equal(run(), distinct_kernel.distinct_counts_plain(
+        ok, xx, xx < nx[:, None], f64)),
+        f"distinct counts on the owner rows ({label})")
+    owner["distinct_counts"] = {
+        "rows": int(ok.shape[0]), "max_abs_err": 0.0,
+        "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
+        "plain_ms": call_ms(lambda: distinct_kernel.distinct_counts_plain(
+            ok, xx, xx < nx[:, None], f64)), **distinct_bound(ok, xx)}
+    del flush
+    for key, rec in owner.items():
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        print(f"{key} on the owner rows ({label}; {rec['rows']} rows, "
+              f"{rec.get('live_rows', rec['rows'])} live): kernel "
+              f"device time {rec['ms']:.4f} ms (L2 flushed), "
+              f"{rec['ms_warm_l2']:.4f} ms (warm), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']}: {rec['bytes']} bytes, {rec['ops']} ops; "
+              f"{rec['share_of_bound']:.1%} of it)")
+    return owner
+
+
 def sharded_phase(card, cuda, graph):
     """Phase 9: the edge-partitioned schedule.  Returns each kernel's
     record on the owner rows and its launches per rank on the sharded
@@ -614,8 +695,6 @@ def sharded_phase(card, cuda, graph):
 
     from gnn_track_finding_tpu_torch import testing
     from gnn_track_finding_tpu_torch.models import pipeline
-    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
-                                                 distinct_kernel)
     f64 = torch.float64
     out_dir = REPO / "build" / "smoke_sharded"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -748,8 +827,8 @@ def sharded_phase(card, cuda, graph):
         "launches_per_replay": cap["launches"], "walls_s": walls,
         "best_s": best, "fallbacks": cap["fallbacks"], "card": card}
 
-    for mesh_shape, jobs_out in (((2, 1), [r[1] for r in gloo]),
-                                 ((1, 1), [nccl_jobs[2]])):
+    for mesh_shape, jobs_out in (((2, 1), [r[1]["events"] for r in gloo]),
+                                 ((1, 1), [nccl_jobs[2]["events"]])):
         per_event = {i: o for r in jobs_out for i, o in r.items()}
         check(sorted(per_event) == [0, 1], "run_batched: events per rank")
         for i, o in sorted(per_event.items()):
@@ -777,50 +856,8 @@ def sharded_phase(card, cuda, graph):
 
     # -- both kernels on rank 0's owner rows (D = 2): device time, plain
     # version and bound, as in phase 6
-    cfg = graph(FULL, f64)[1]
-    inputs = runs["gloo"][0]["kernel_inputs"]
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
-    owner = {}
-    put = lambda a: torch.from_numpy(a).to(cuda)
-    for rnd in ("seed", "updated"):
-        a = inputs[f"cluster_{rnd}"]
-        x = clustering.CoreInputs(
-            ids=None, tab=put(a["tab"]),
-            states=cluster_kernel.unpack_states(put(a["packed"])),
-            node_xyzr=put(a["node_xyzr"]), klthr=put(a["klthr"]),
-            chi2_thr=a["chi2_thr"], member_slot=None, count=put(a["count"]))
-        args = (x.states, x.tab, x.node_xyzr, x.klthr, x.count)
-        core_case(f"owner rows (rank 0 of 2), {rnd} round float64", args,
-                  cfg, x.chi2_thr, check_found=int(x.count) > 0)
-
-        def run():
-            return cluster_kernel.cluster_core(*args, chi2_thr=x.chi2_thr,
-                                               cfg=cfg)
-
-        rec = {"rows": int(x.tab.shape[0]), "live_rows": int(x.count),
-               "ms": device_ms(run, flush=flush), "ms_warm_l2": device_ms(run),
-               "plain_ms": call_ms(lambda: cluster_kernel.cluster_core_plain(
-                   *args, chi2_thr=x.chi2_thr, cfg=cfg), reps=5),
-               **cluster_bound(x, run(), cfg)}
-        owner[f"gmr_cluster {rnd}"] = rec
-    a = inputs["distinct"]
-    ok, xx, nx = put(a["ok"]), put(a["x"]), put(a["node_x"])
-    run = lambda: distinct_kernel.distinct_counts(ok, xx, nx)
-    check(torch.equal(run(), distinct_kernel.distinct_counts_plain(
-        ok, xx, xx < nx[:, None], f64)), "distinct counts on the owner rows")
-    owner["distinct_counts"] = {
-        "rows": int(ok.shape[0]), "ms": device_ms(run, flush=flush),
-        "ms_warm_l2": device_ms(run),
-        "plain_ms": call_ms(lambda: distinct_kernel.distinct_counts_plain(
-            ok, xx, xx < nx[:, None], f64)), **distinct_bound(ok, xx)}
-    del flush
-    for key, rec in owner.items():
-        print(f"{key} on rank 0's owner rows ({rec['rows']} rows, "
-              f"{rec.get('live_rows', rec['rows'])} live): kernel "
-              f"device time {rec['ms']:.4f} ms (L2 flushed), "
-              f"{rec['ms_warm_l2']:.4f} ms (warm), plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
-              f"({rec['bound_by']}: {rec['bytes']} bytes, {rec['ops']} ops)")
+    owner = owner_rows_records(runs["gloo"][0]["kernel_inputs"],
+                               graph(FULL, f64)[1], cuda, "rank 0 of 2")
     launches = {name: {"gloo_2_ranks": [o["launches"][name]
                                         for o in runs["gloo"]],
                        "nccl_1_rank": runs["nccl"][0]["launches"][name],
@@ -1570,6 +1607,171 @@ def batch_phase(card, cuda):
     return record
 
 
+def batched_sharded_phase(card, cuda):
+    """Phase 14: batched x edge-sharded execution at float64 on rotated
+    copies of the full event (bench.load_rotated): a data rank's events as
+    their union, edge-partitioned over the edge group as one program per
+    rank (parallel/mesh.run_batched, edge_shard.run_sharded on a stack).
+    Returns the record of the phase (the kernels' launches, agreement,
+    times and bounds on the union's owner rows among it)."""
+    from collections import Counter
+
+    from gnn_track_finding_tpu_torch import bench, testing
+    from gnn_track_finding_tpu_torch.models import pipeline
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    out_dir = REPO / "build" / "smoke_batched_sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"card: {card}")
+    copies = lambda n: [{"npz": str(FULL), "copy": [b, n]} for b in range(n)]
+    record = {"card": card}
+
+    # 2 gloo ranks on cuda:0: run_batched on a (1, 2) mesh over 2 copies
+    t0 = time.perf_counter()
+    gloo = testing.spawn_ranks(
+        "batched", 2, out_dir / "gloo", device="cuda:0", timeout=300,
+        events=copies(2), shape=(1, 2), reps=2, check_kernels=True).join()
+    t_gloo = time.perf_counter() - t0
+    # 1 NCCL rank: the 4-copy stack through run_sharded, then
+    # multihost.scaling_report over the 4 copies
+    t0 = time.perf_counter()
+    (nccl,) = testing.spawn_ranks(
+        "sequence", 1, out_dir / "nccl", backend="nccl", device="cuda:0",
+        timeout=400,
+        jobs=[("captured", dict(event={"stack": copies(4)}, reps=3,
+                                check_kernels=True)),
+              ("multihost", dict(events=copies(4), num_events=4))]).join()
+    t_nccl = time.perf_counter() - t0
+    print(f"rank processes: gloo world of 2 {t_gloo:.1f} s, NCCL world of 1 "
+          f"{t_nccl:.1f} s (start, ingest, runs, checks)")
+
+    # the single-device reference: each copy's own captured replay
+    refs = []
+    for b in range(2):
+        g = bench.load_rotated(FULL, bench.CFG, b, 2, device=cuda, dtype=f64)
+        (res,) = pipeline.run_schedule_batched([g], bench.CFG)
+        refs.append((res.acc_count.tolist(), res.acc_nodes.cpu().numpy(),
+                     res.acc_pvals.cpu().numpy(), res.graph.to_numpy()))
+        del g, res
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    check(refs[0][0] == EXPECTED_F64[FULL], f"copy 0 single replay counts "
+          f"{refs[0][0]}")
+
+    bars = dict(rtol=0.0, looser={"grad_stats": 1e-12})
+    gloo_rec = {"launches": [], "live_edges": [], "peak_gib": [],
+                "walls_s": [], "accepted": None}
+    for rank, o in enumerate(gloo):
+        program = [c for c in o["census"] if c["caller"] != "gather_graph"]
+        paths = sorted({e["path"] for e in o["events"].values()})
+        check(sorted(o["events"]) == [0, 1], f"gloo rank {rank}: events")
+        check(paths == ["eager"], f"gloo rank {rank}: paths {paths}")
+        check(len(program) == 64, f"gloo rank {rank}: {len(program)} "
+              "collectives in the batch, not one program's 64")
+        check(o["launches"] == {"gmr_cluster": 2, "distinct_counts": 3},
+              f"gloo rank {rank}: launches {o['launches']} (one program: "
+              "2 and 3)")
+        check(all(c["bitwise"] for c in o["kernel_checks"].values()),
+              f"gloo rank {rank}: a kernel differs from its plain version "
+              "on the union's owner rows")
+        for i, (count, nodes, pvals, state) in enumerate(refs):
+            e = o["events"][i]
+            check(e["acc_count"] == count
+                  and np.array_equal(e["acc_nodes"], nodes)
+                  and np.array_equal(e["acc_pvals"], pvals),
+                  f"gloo rank {rank} event {i}: candidates differ from the "
+                  "single-device replay's")
+            bad = testing.states_differ(state, e["graph"], **bars)
+            check(not bad, f"gloo rank {rank} event {i}: state {bad}")
+        best = {k: min(v) for k, v in o["walls"].items()}
+        print(f"gloo rank {rank} of 2, (1, 2) mesh: accepted "
+              f"{[o['events'][i]['acc_count'] for i in (0, 1)]} (single "
+              f"device {[r[0] for r in refs]}), paths {paths}; "
+              f"{len(program)} collectives of the program "
+              f"({dict(Counter(c['op'] for c in program))}) + "
+              f"{len(o['census']) - len(program)} gathering the state; "
+              f"kernel launches {o['launches']}; live edges in its block "
+              f"{o['live_edges']}; peak allocated "
+              f"{o['peak_bytes'] / 2**30:.3f} GiB; wall per batch of 2, "
+              f"best of {len(o['walls']['batched'])} in turns: batched "
+              f"{best['batched']:.4f} s, the 2 events through run_sharded "
+              f"in turn {best['in_turn']:.4f} s; owner rows against the "
+              f"plain versions {o['kernel_checks']}")
+        gloo_rec["launches"].append(o["launches"])
+        gloo_rec["live_edges"].append(o["live_edges"])
+        gloo_rec["peak_gib"].append(o["peak_bytes"] / 2**30)
+        gloo_rec["walls_s"].append(o["walls"])
+    gloo_rec["accepted"] = [gloo[0]["events"][i]["acc_count"] for i in (0, 1)]
+    record["gloo_2_ranks"] = gloo_rec
+
+    cap, mh = nccl
+    walls = cap["walls"]
+    best = {k: min(v) for k, v in walls.items()}
+    accepted = [e["acc_count"] for e in cap["result"]]
+    print(f"4 copies stacked, run_sharded on the NCCL rank of 1 (routing "
+          f"bucket {cap['bucket']}, {cap['live_edges']} live edges): paths "
+          f"{cap['paths']}, accepted {accepted}; fields differing bit for "
+          f"bit from the eager body (first call, a replay, a replay under "
+          f"the sync debug mode): {cap['differs']}; from each event's "
+          f"single-device batched replay: {cap['single_differs']}; capture "
+          f"{cap['capture_s']:.3f} s, end of capture + instantiate "
+          f"{cap['instantiate_s']:.3f} s, pool "
+          f"{cap['pool_bytes'] / 2**30:.3f} GiB; one replay "
+          f"{cap['replay_ms']:.3f} ms on the device; kernel launches per "
+          f"replay {cap['launches']}; {len(cap['census'])} collectives; "
+          f"events/s, best of {len(walls['captured'])} in turns: stacked "
+          f"{4 / best['captured']:.3f}, 4 single-event sharded replays in "
+          f"turn {4 / best['in_turn']:.3f} (x"
+          f"{best['in_turn'] / best['captured']:.3f}); fallbacks "
+          f"{cap['fallbacks']}")
+    check(cap["path"] == "captured" and cap["paths"] == ["captured"] * 4,
+          f"NCCL rank: paths {cap['paths']}")
+    check(not any(cap["differs"].values()),
+          f"NCCL rank: the stacked replay differs from the eager body: "
+          f"{cap['differs']}")
+    check(not any(cap["single_differs"]), "NCCL rank: an event differs from "
+          f"its single-device batched replay: {cap['single_differs']}")
+    check(accepted[0] == EXPECTED_F64[FULL], f"NCCL rank: copy 0 {accepted[0]}")
+    check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3},
+          f"NCCL rank: launches per replay {cap['launches']}")
+    check(len(cap["census"]) == 64, f"NCCL rank: {len(cap['census'])} "
+          "collectives in the stacked program")
+    check(all(c["bitwise"] for c in cap["kernel_checks"].values()),
+          "NCCL rank: a kernel differs from its plain version on the "
+          "union's owner rows")
+    check(cap["fallbacks"] == 0, "NCCL rank: a fallback")
+    record["nccl_1_rank"] = {
+        "accepted": accepted, "paths": cap["paths"],
+        "capture_s": cap["capture_s"], "instantiate_s": cap["instantiate_s"],
+        "pool_gib": cap["pool_bytes"] / 2**30, "replay_ms": cap["replay_ms"],
+        "launches_per_replay": cap["launches"], "walls_s": walls,
+        "events_per_s_stacked": 4 / best["captured"],
+        "events_per_s_in_turn": 4 / best["in_turn"],
+        "live_edges": cap["live_edges"], "bucket": cap["bucket"]}
+
+    rep = mh["report"]
+    print(f"multihost.scaling_report over the 4 copies, NCCL world of 1: "
+          f"sequential (each event its own captured replay) "
+          f"{rep['sequential_s']:.4f} s, parallel (one batched program) "
+          f"{rep['parallel_s']:.4f} s, scaling efficiency "
+          f"{rep['scaling_efficiency']:.3f}; checksums "
+          f"{rep['sequential_checksum']} / {rep['parallel_checksum']}")
+    check(rep["sequential_checksum"] == rep["parallel_checksum"]
+          == sum(map(sum, accepted)), f"scaling_report checksums {rep}")
+    record["scaling_report"] = rep
+
+    owner = owner_rows_records(cap["kernel_inputs"], bench.CFG, cuda,
+                               "the 4-copy union, NCCL rank of 1")
+    record["kernels"] = owner
+    shutil.rmtree(out_dir, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14: {record['seconds']:.1f} s")
+    print(json.dumps({"batched_sharded": record}))
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1. device")
@@ -2056,6 +2258,26 @@ def main() -> int:
     phase("13. the event batch: B events in one captured program")
     batched = batch_phase(card, cuda)
 
+    phase("14. batched x edge-sharded: a data rank's events as one "
+          "edge-partitioned program per rank (float64)")
+    batched_sharded = batched_sharded_phase(card, cuda)
+
+    def batched_sharded_entry(name):
+        """A kernel's launches, agreement, times and bound in phase 14."""
+        rounds = (("seed", "updated") if name == "gmr_cluster" else (None,))
+        recs = {rnd or "reweight": batched_sharded["kernels"][
+            f"{name} {rnd}" if rnd else name] for rnd in rounds}
+        return {"launches_gloo_2_ranks": [
+                    o[name] for o in batched_sharded["gloo_2_ranks"][
+                        "launches"]],
+                "launches_nccl_per_replay": batched_sharded["nccl_1_rank"][
+                    "launches_per_replay"][name],
+                "shape": "owner rows of 4 full events' union, float64",
+                **{k: {key: rec[key] for key in (
+                    "rows", "live_rows", "max_abs_err", "ms", "ms_warm_l2",
+                    "plain_ms", "bound_ms", "bound_by", "share_of_bound")
+                    if key in rec} for k, rec in recs.items()}}
+
     def event_batch(name):
         """A kernel's launches, agreement, times and bound in phase 13."""
         return {"launches_first_call":
@@ -2102,7 +2324,8 @@ def main() -> int:
                    if k.startswith(("gmr_cluster", "cluster stage"))},
          "occupancy": {k: v for k, v in occupancy.items()
                        if k.startswith("gmr_cluster")},
-         "event_batch": event_batch("gmr_cluster")},
+         "event_batch": event_batch("gmr_cluster"),
+         "batched_sharded": batched_sharded_entry("gmr_cluster")},
         {"name": "distinct_counts", "route": "cuda", "source": DISTINCT_SOURCE,
          "replaces": DISTINCT_REPLACES,
          "launches": launches["distinct_counts"],
@@ -2126,7 +2349,8 @@ def main() -> int:
                    if k.startswith("distinct_counts")},
          "occupancy": {k: v for k, v in occupancy.items()
                        if k.startswith("distinct_counts")},
-         "event_batch": event_batch("distinct_counts")},
+         "event_batch": event_batch("distinct_counts"),
+         "batched_sharded": batched_sharded_entry("distinct_counts")},
     ]
     print(f"\nchip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -109,7 +109,9 @@ def connected_components_fixed(g, edge_ok: torch.Tensor,
     On a stacked batch (g.batch = B > 1) no component crosses an event,
     so the labels are each event's own (offset by its first node), and
     `rounds` and `converged` are per event, of shape (B,): what each
-    event's own run reports."""
+    event's own run reports.  Under a group on a stack (the union
+    edge-partitioned) each round's labels are allmin-combined first, so
+    every rank tests each event's convergence on the same labels."""
     max_rounds = R_CAP if max_rounds is None else max_rounds
     n = g.node_mask.shape[0]
     batch = g.batch

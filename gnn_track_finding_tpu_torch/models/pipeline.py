@@ -167,7 +167,9 @@ class ScheduleResults(NamedTuple):
     overflow: torch.Tensor      # (I,) bool: count over the cap, or FastSV
                                 # still changing labels after R_CAP rounds
     path: str = "eager"         # how it ran: "eager", "captured" (a CUDA
-                                # graph's replay) or "exact" (the fallback)
+                                # graph's replay) or "exact" (the fallback);
+                                # one per event on a sharded stack (a tuple,
+                                # edge_shard.run_sharded)
 
 
 def full_pipeline_results(g: GraphState, cfg: PipelineConfig, group=None,
@@ -469,7 +471,12 @@ class CapturedSchedule(CapturedGraph):
     ops and collectives in the same order, since each runs the same
     program.  A stacked batch of B events (graph/state.stack_events) is
     one program of its own (program_key holds B): one replay runs all B
-    events and one readback brings back their B rows.
+    events and one readback brings back their B rows.  Under an edge
+    partition a stack is this rank's block of the union, its routing
+    built over the union (parallel/edge_shard.py; the key holds the
+    routing's bucket, which grows with B): `replay` clones the (B, I, ...)
+    results out as they are, and every rank captures the same chunks in
+    the same order.
 
     A prefetch thread may go on building the next event on the device
     while the capture (CapturedGraph._capture) runs.  The program's
@@ -814,36 +821,39 @@ def run_pipeline_batched(graphs: List[GraphState], cfg: PipelineConfig,
             zip(graphs, unstack_events(_sized_like(g_out, g)), buf)]
 
 
+def split_events(res: ScheduleResults) -> List[ScheduleResults]:
+    """A stacked run's results (res.graph the whole union) per event, in
+    order: each event's fields (the leading (B,) axis taken apart; one
+    event's fields as they are), its state unstacked, its path (res.path,
+    or its own where res.path is a tuple)."""
+    g = res.graph
+    lead = len(g.event_shape)
+    fields = [k for k in ScheduleResults._fields if k not in ("graph",
+                                                              "path")]
+    per = {k: getattr(res, k).reshape(g.batch, *getattr(res, k).shape[lead:])
+           for k in fields}
+    paths = res.path if isinstance(res.path, tuple) else (res.path,) * g.batch
+    return [ScheduleResults(graph=g_b, **{k: v[b] for k, v in per.items()},
+                            path=p)
+            for b, (g_b, p) in enumerate(zip(unstack_events(g), paths))]
+
+
 def run_schedule_batched(graphs: List[GraphState], cfg: PipelineConfig
                          ) -> List[ScheduleResults]:
     """B events of one pad bucket as one program, their results left on
     the device: full_pipeline_results of the union (on a CUDA device a
     replay of the batch's captured program, path "captured"; eagerly
     otherwise, path "eager"), split per event with each event's state
-    unstacked; one host read of the overflow flags, and an overflowed
-    event rerun alone by the exact driver (path "exact", counted in
-    `fallbacks`)."""
+    unstacked (split_events); one host read of the overflow flags, and an
+    overflowed event rerun alone by the exact driver (path "exact",
+    counted in `fallbacks`)."""
     global fallbacks
     g = stack_events(graphs)
     if g.device.type == "cuda":
         res = captured_program(g, cfg).replay(g)
     else:
         res = full_pipeline_results(g, cfg)
-    lead = len(g.event_shape)
-    fields = [k for k in ScheduleResults._fields if k not in ("graph",
-                                                              "path")]
-    # every per-event field with a leading (B,) axis, also for B = 1
-    res = res._replace(**{k: getattr(res, k).reshape(
-        g.batch, *getattr(res, k).shape[lead:]) for k in fields})
-    over = res.overflow.any(dim=1).tolist()
-    out = []
-    for b, g_b in enumerate(unstack_events(res.graph)):
-        if over[b]:
-            fallbacks += 1
-            out.append(exact_results(run_pipeline(graphs[b], cfg,
-                                                  host_cca=False)))
-        else:
-            out.append(ScheduleResults(
-                graph=g_b, **{k: getattr(res, k)[b] for k in fields},
-                path=res.path))
-    return out
+    over = res.overflow.reshape(g.batch, -1).any(dim=1).tolist()
+    fallbacks += sum(over)
+    return [exact_results(run_pipeline(g_in, cfg, host_cca=False)) if o
+            else r for g_in, r, o in zip(graphs, split_events(res), over)]

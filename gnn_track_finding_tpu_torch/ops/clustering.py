@@ -144,7 +144,10 @@ def owner_table(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     (29 values) rides one all_to_all to its head's owner.  The received
     (D * bucket, 29) buffer is the core's per-edge tensors, read through
     column views, and `tab` holds positions in that buffer.  Owner rows
-    are the interleaved nodes r*D + rank, rows = N / D."""
+    are the interleaved nodes r*D + rank, rows = N / D.  On a stacked
+    batch N is the union's B * N_event; since N_event % D == 0 a node
+    keeps its single event's owner, and the table has B * N_event / D
+    rows."""
     n, k_tab = g.in_edges.shape
     rows = n // routing.n_shards
     member = (g.has_updated if use_updated else g.edge_mask) & g.edge_mask
@@ -179,7 +182,9 @@ def owner_core_inputs(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     """The compacted rows of THIS rank's gated owner nodes (owner_table),
     the gated rows first in owner-row order in a static (N / D, kc)
     table, as core_inputs compacts them: `ids` are owner rows, N / D past
-    the live count, which stays on the device."""
+    the live count, which stays on the device (on a stacked batch: the
+    union's static B * N_event / D rows, every event's gated rows in
+    one table)."""
     tab, gate, states, member_slot = owner_table(g, cfg, use_updated, group,
                                                  routing, kc)
     ids, row, live = gated_rows(gate)

@@ -367,7 +367,10 @@ def _accepted_heads(mat, accepted, pvals, event_shape, n_event: int,
     under the cap, every other row to a dump row that is sliced off; node
     ids are local to the event.  The cap is that of one event of n_event
     padded nodes.  -> (count, nodes (cap, H), pvals (cap, 2)), each with
-    the leading event_shape: () for one event, (B,) for a batch."""
+    the leading event_shape: () for one event, (B,) for a batch.  Under a
+    group the candidate rows come from the combined labels, the same on
+    every rank, so on an edge-partitioned stack every rank finds the same
+    per-event counts, local ids and caps."""
     batch = math.prod(event_shape)
     cap = min(ACC_PULL_CAP, candidate_rows(n_event, min_hits))
     dev = mat.device

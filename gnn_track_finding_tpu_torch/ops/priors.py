@@ -190,7 +190,8 @@ def owner_tables(g: GraphState, group, routing=None):
     (one all_to_all; owner rows interleaved, node r*D + rank); without it
     the (N, K) partial tables reduce-scatter to contiguous row blocks.
     Either way a table row holds exactly the single-device row's cells
-    (priors._reweight_tables), one writer per cell."""
+    (priors._reweight_tables), one writer per cell; on an edge-partitioned
+    stack the rows are the union's, B * N_event / D per rank."""
     n, k_tab = g.in_edges.shape
     member = g.has_updated & g.active & g.edge_mask
     xs = g.upd_xyzr[:, 0]
@@ -241,7 +242,8 @@ def prior_reweight(g: GraphState, cfg: PipelineConfig, group,
     (N, L + 4) packed results are gathered back; each edge reads its head's
     row.  The row contents and every product are those of one
     reweight_stage pass, so a pass is bitwise that pass's on the same
-    device.  (The JAX module's edge_distinct A/B branch is not ported.)"""
+    device, also on an edge-partitioned stack, whose owner rows are the
+    union's.  (The JAX module's edge_distinct A/B branch is not ported.)"""
     n = g.num_padded_nodes
     n_l = g.n_layers
     dtype = g.dtype

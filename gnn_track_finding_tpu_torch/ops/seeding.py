@@ -17,7 +17,10 @@ partition (`group`, JAX seeding.py:169-188) each rank sums the rows of its
 partial table (its own edges' cells) and the (N,) partials are all-summed:
 JAX's wire pattern.  That reassociates the sums at rank boundaries, so
 the statistics agree with the single-device ones to rtol 1e-12, not
-bitwise; everything else is per edge and bitwise.
+bitwise; everything else is per edge and bitwise.  On a stacked batch
+under a group (the union edge-partitioned, parallel/edge_shard.py) a
+node's cells are its own event's edges, wherever they sit, so the one
+all-sum combines every event's partials at once.
 """
 
 from __future__ import annotations

@@ -31,18 +31,40 @@ same flags on every rank), is rerun on every rank by the exact fallback
     r_loc = edge_shard.routing_shard(edge_shard.build_owner_routing(g, d),
                                      rank)
     out = edge_shard.run_sharded(g_loc, cfg, group, r_loc)
+
+A batch of events (graph/state.stack_events: their disjoint union, B*N
+nodes and B*E edges) is stacked first and then sharded: shard_graph and
+build_owner_routing take the union as they take one event, and every
+sharded function runs on it unchanged, so one replay (or one eager run)
+covers the batch.  Since N % D == 0, union node b*N + i keeps its
+single-event owner i % D; the routing's bucket grows with B and is part
+of the program key.  JAX shards each event's edge axis inside its vmap
+(P("data", "edge"), mesh.py:40-52), so rank r holds another set of
+edges there; the semantics are the same, and the extraction, FastSV's
+convergence and the overflow flags are per event either way.  On a stack,
+run_sharded takes the events' whole states, from which an overflowed
+event reruns alone:
+
+    st = stack_events(graphs)
+    r_loc = edge_shard.routing_shard(edge_shard.build_owner_routing(st, d),
+                                     rank)
+    out = edge_shard.run_sharded(edge_shard.shard_graph(st, group), cfg,
+                                 group, r_loc, graphs)
 """
 
 from __future__ import annotations
 
 import dataclasses
 from datetime import timedelta
+from typing import Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from gnn_track_finding_tpu_torch.graph.state import GraphState
+from gnn_track_finding_tpu_torch.graph.state import (GraphState, stack_events,
+                                                     unstack_events)
 from gnn_track_finding_tpu_torch.models import pipeline
 from gnn_track_finding_tpu_torch.ops import collect
 
@@ -220,22 +242,76 @@ def captures(g: GraphState, group) -> bool:
     return g.device.type == "cuda" and dist.get_backend(group) == "nccl"
 
 
-def run_sharded(g: GraphState, cfg, group, routing: OwnerRouting
+def run_sharded(g: GraphState, cfg, group, routing: OwnerRouting,
+                events: Sequence[GraphState] | None = None
                 ) -> pipeline.ScheduleResults:
-    """The schedule of one event on this rank (its block g and routing):
-    the captured program's replay where `captures`, else the body run
-    eagerly; then one host read of the overflow flags, and the exact
-    fallback on every rank if one is set.  Raises if the capture fails."""
+    """The schedule on this rank (its block g and routing): the captured
+    program's replay where `captures`, else the body run eagerly; then one
+    host read of the overflow flags, and the exact fallback on every rank
+    for an event whose flag is set (counted in pipeline.fallbacks).
+    Raises if the capture fails.
+
+    On a stacked batch (g.batch = B > 1: this rank's block of the union,
+    routing built over the union) every field but `graph` has a leading
+    (B,) axis and `path` is a tuple, one per event; `events` are the B
+    events' whole states (on this rank's device).  An overflowed event
+    reruns alone from events[b], partitioned by itself, since a rank
+    holds only its block of the union; its results, widened to the
+    largest head cap, and its final state (gathered whole and restacked
+    into the union, of which this rank keeps its block) replace the
+    batched ones, and the other events keep theirs (as
+    pipeline.run_schedule_batched does on one device)."""
     _check_routing(group, routing)
+    if g.batch > 1 and (events is None or len(events) != g.batch):
+        raise ValueError(f"run_sharded on a stack of {g.batch} events needs "
+                         "their whole states (events)")
     if captures(g, group):
         res = pipeline.captured_program(g, cfg, group, routing).replay(
             g, routing)
     else:
         res = schedule_sharded(g, cfg, group, routing)
-    if bool(res.overflow.any()):
-        pipeline.fallbacks += 1
-        res = schedule_sharded_exact(g, cfg, group, routing)
-    return res
+    over = res.overflow.reshape(g.batch, -1).any(dim=1).tolist()
+    pipeline.fallbacks += sum(over)
+    if g.batch == 1:
+        return schedule_sharded_exact(g, cfg, group, routing) if over[0] \
+            else res
+    d, rank = dist.get_world_size(group), dist.get_rank(group)
+    reruns = {}
+    for b in (b for b, o in enumerate(over) if o):
+        r_b = routing_shard(build_owner_routing(events[b], d), rank)
+        reruns[b] = schedule_sharded_exact(shard_graph(events[b], group),
+                                           cfg, group, r_b)
+    paths = tuple("exact" if b in reruns else res.path
+                  for b in range(g.batch))
+    if not reruns:
+        return res._replace(path=paths)
+    return _with_reruns(res, reruns, group)._replace(path=paths)
+
+
+def _with_reruns(res: pipeline.ScheduleResults, reruns: dict, group
+                 ) -> pipeline.ScheduleResults:
+    """A stack's batched results with event b's replaced by reruns[b] (one
+    event's exact results, this rank's block of its own partition): the
+    heads widened to the largest cap (-1 nodes, zero p-values), the final
+    state gathered whole, event b's put in, restacked and sharded again."""
+    cap = max(r.acc_nodes.shape[-2] for r in (res, *reruns.values()))
+    widen = lambda t, fill: F.pad(t, (0, 0, 0, cap - t.shape[-2]),
+                                  value=fill)
+    fields = {"acc_count": res.acc_count.clone(),
+              "acc_nodes": widen(res.acc_nodes, -1),
+              "acc_pvals": widen(res.acc_pvals, 0.0),
+              "cca_rounds": res.cca_rounds.clone(),
+              "overflow": res.overflow.clone()}
+    whole = unstack_events(gather_graph(res.graph, group))
+    for b, ex in reruns.items():
+        fields["acc_count"][b] = ex.acc_count
+        fields["acc_nodes"][b] = widen(ex.acc_nodes, -1)
+        fields["acc_pvals"][b] = widen(ex.acc_pvals, 0.0)
+        fields["cca_rounds"][b] = ex.cca_rounds
+        fields["overflow"][b] = ex.overflow
+        whole[b] = gather_graph(ex.graph, group)
+    return res._replace(graph=shard_graph(stack_events(whole), group),
+                        **fields)
 
 
 def edge_group(n: int | None = None):

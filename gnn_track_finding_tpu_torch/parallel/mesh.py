@@ -12,7 +12,10 @@ JAX stacks a batch's events on a leading axis and vmaps the schedule
 (`stack_events`, mesh.py:60-66).  Here a batch is the events' disjoint
 union (graph/state.stack_events, re-exported under JAX's name): every
 stage runs unchanged over B*N nodes and B*E edges, each kernel launch
-covering the whole batch.
+covering the whole batch.  On an edge group of D > 1 ranks the union is
+then edge-partitioned as one event is (parallel/edge_shard.py), so a data
+rank's chunk of events is one program per rank, with one set of
+collectives, however many events it holds.
 """
 
 from __future__ import annotations
@@ -73,7 +76,9 @@ def event_slice(num_events: int, index: int, count: int) -> Tuple[int, int]:
 
 # padded nodes per batched program: eight full events (57,344 padded
 # nodes each; 25-29 GiB peak allocated at float32 on an H100, PERF.md
-# section 5), so that a long slice runs in chunks of bounded memory
+# section 5), so that a long slice runs in chunks of bounded memory; on an
+# edge group every rank holds the union's node tables whole, so the cap
+# holds per rank there too
 MAX_BATCH_NODES = 8 * 57_344
 
 
@@ -92,16 +97,31 @@ def batch_chunks(graphs: Sequence) -> List[List[int]]:
     return out
 
 
-def _run_one_program_each(graphs: Sequence, cfg, first: int = 0
-                          ) -> List[Tuple[int, pipeline.ScheduleResults]]:
-    """graphs in batch_chunks' batches, each one program
-    (pipeline.run_schedule_batched) -> (first + event index, results),
-    in event order."""
+def _run_chunks(graphs: Sequence, cfg, run, first: int = 0
+                ) -> List[Tuple[int, pipeline.ScheduleResults]]:
+    """graphs in batch_chunks' batches, each one program run(chunk, cfg)
+    -> (first + event index, results), in event order."""
     out = []
     for chunk in batch_chunks(graphs):
-        out += zip((first + i for i in chunk), pipeline.run_schedule_batched(
-            [graphs[i] for i in chunk], cfg))
+        out += zip((first + i for i in chunk),
+                   run([graphs[i] for i in chunk], cfg))
     return sorted(out, key=lambda pair: pair[0])
+
+
+def _run_sharded_chunk(graphs: List, cfg, mesh: Mesh
+                       ) -> List[pipeline.ScheduleResults]:
+    """One chunk as one edge-partitioned program over the mesh's edge
+    group: the events stacked, the union's routing built on the host,
+    edge_shard.run_sharded (an NCCL group replays the rank's captured
+    program), the final union gathered whole and split per event."""
+    group = mesh.edge_group
+    st = stack_events(graphs)
+    routing = edge_shard.routing_shard(
+        edge_shard.build_owner_routing(st, mesh.shape[1]), mesh.edge_index)
+    res = edge_shard.run_sharded(edge_shard.shard_graph(st, group), cfg,
+                                 group, routing, graphs)
+    return pipeline.split_events(
+        res._replace(graph=edge_shard.gather_graph(res.graph, group)))
 
 
 def run_batched(graphs: Sequence, cfg, mesh: Mesh | None = None
@@ -111,35 +131,28 @@ def run_batched(graphs: Sequence, cfg, mesh: Mesh | None = None
     With no mesh and no process group: JAX's one-device call, the batch
     as one program on the graphs' device (pipeline.run_schedule_batched:
     their union, on a CUDA device one replay of its captured program).
-    On a mesh, data rank i takes its contiguous slice of the batch; where
-    the edge group has one rank the slice runs the same way, with no
-    collective, and otherwise each event runs edge-partitioned over the
-    edge group (edge_shard.run_sharded: the routing built on the host,
-    then on an NCCL group a replay of the rank's captured program).
+    On a mesh, data rank i takes its contiguous slice of the batch.
+    Where the edge group has one rank the slice runs the same way, with
+    no collective; otherwise the slice's union runs edge-partitioned over
+    the edge group as one program per rank (_run_sharded_chunk: on an
+    NCCL group one replay of the rank's captured program, eager on gloo),
+    every rank of the group running the same chunks in the same order.
     Where JAX needs one pad bucket, the events here are grouped by
     bucket, and a group over MAX_BATCH_NODES runs in chunks
     (batch_chunks): one program per chunk.
 
     graphs: the batch's whole GraphStates, on this rank's device.  Returns
     (event index, results) for this rank's events, in order, each with
-    its own state (unstacked, or gathered whole) and `path` ("captured",
-    "eager" or "exact"); per-event results equal the single-device run's
+    its own state (unstacked, or gathered whole and unstacked) and `path`
+    ("captured", "eager" or "exact": an overflowed event reruns alone);
+    per-event results equal the single-device run's
     (tests/test_torch_batched.py, tests/test_torch_parallel.py)."""
     if mesh is None and not (dist.is_available() and dist.is_initialized()):
-        return _run_one_program_each(list(graphs), cfg)
+        return _run_chunks(list(graphs), cfg, pipeline.run_schedule_batched)
     mesh = mesh or make_mesh()
-    d = mesh.shape[1]
     lo, hi = event_slice(len(graphs), mesh.data_index, mesh.shape[0])
-    if d == 1:
-        return _run_one_program_each(list(graphs[lo:hi]), cfg, lo)
-    out = []
-    for i in range(lo, hi):
-        g = graphs[i]
-        routing = edge_shard.routing_shard(
-            edge_shard.build_owner_routing(g, d), mesh.edge_index)
-        res = edge_shard.run_sharded(
-            edge_shard.shard_graph(g, mesh.edge_group), cfg, mesh.edge_group,
-            routing)
-        out.append((i, res._replace(
-            graph=edge_shard.gather_graph(res.graph, mesh.edge_group))))
-    return out
+    if mesh.shape[1] == 1:
+        return _run_chunks(list(graphs[lo:hi]), cfg,
+                           pipeline.run_schedule_batched, lo)
+    return _run_chunks(list(graphs[lo:hi]), cfg,
+                       lambda chunk, c: _run_sharded_chunk(chunk, c, mesh), lo)

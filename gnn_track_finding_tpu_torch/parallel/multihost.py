@@ -67,34 +67,39 @@ def local_event_slice(num_events: int) -> Tuple[int, int]:
 
 
 def scaling_report(graphs: Sequence, cfg) -> dict:
-    """Weak scaling on the ranks at hand: the batch's per-event wall on one
-    rank (rank 0 runs every event in turn while the others wait) against
-    one slice of the batch per rank (local_event_slice), with both
-    checksums (the total accepted count).  graphs: the whole batch on
-    this rank's device."""
+    """Weak scaling on the ranks at hand (JAX multihost.py:61-96): the
+    batch's events one by one on one rank (rank 0 runs each in turn
+    through the single-event program, pipeline.run_schedule_batched([g]),
+    while the others wait) against the batch as one batched program per
+    rank (mesh.run_batched on a (world, 1) mesh: each rank's
+    local_event_slice stacked, on a CUDA device one replay), each side
+    timed after a warm-up run that also gives its checksum (the total
+    accepted count).  graphs: the whole batch on this rank's device."""
     rank, world = _world()
+    mesh = pmesh.make_mesh((world, 1)) if dist.is_initialized() else None
 
-    def run(events):
-        total = 0
-        for g in events:
-            total += int(pipeline.full_pipeline_results(g, cfg)
-                         .acc_count.sum())
-        return total
+    def sequential():
+        return sum(int(pipeline.run_schedule_batched([g], cfg)[0]
+                       .acc_count.sum()) for g in graphs)
+
+    def parallel():
+        return sum(int(r.acc_count.sum())
+                   for _, r in pmesh.run_batched(graphs, cfg, mesh))
 
     def barrier():
         if world > 1:
             dist.barrier()
 
-    seq_sum = run(graphs) if rank == 0 else 0     # also the warm-up
+    seq_sum = sequential() if rank == 0 else 0    # also the warm-up
     barrier()
     t0 = time.perf_counter()
     if rank == 0:
-        run(graphs)
+        sequential()
     t_seq = time.perf_counter() - t0
+    par = parallel()                              # also the warm-up
     barrier()
-    lo, hi = local_event_slice(len(graphs))
     t0 = time.perf_counter()
-    par = run(graphs[lo:hi])
+    parallel()
     barrier()
     t_par = time.perf_counter() - t0
     sums = torch.tensor([seq_sum, par, t_seq], dtype=torch.float64,

@@ -315,12 +315,14 @@ def _result_numpy(res) -> dict:
 
 
 def _sharded(ctx: RankContext, g, group):
-    """(the rank's block of g, the rank's routing) over `group`, which
-    holds every rank."""
+    """(this rank's block of g, its routing) over `group`, of which this
+    rank is a member."""
+    import torch.distributed as dist
+
     from gnn_track_finding_tpu_torch.parallel import edge_shard
-    r = edge_shard.build_owner_routing(g, ctx.world)
+    r = edge_shard.build_owner_routing(g, dist.get_world_size(group))
     return (edge_shard.shard_graph(g, group),
-            edge_shard.routing_shard(r, ctx.rank))
+            edge_shard.routing_shard(r, dist.get_rank(group)))
 
 
 def _job_stages(ctx: RankContext, staged: dict, prepared: dict, meta: dict,
@@ -351,12 +353,20 @@ def _job_stages(ctx: RankContext, staged: dict, prepared: dict, meta: dict,
 
 def _graph(ctx: RankContext, event: dict, dtype=torch.float64):
     """(GraphState, config) of a toy event {"toy": (tracks, seed), "cfg":
-    {...}, optionally "gen": {generate_event's other arguments}} or an
-    event cache {"npz": path}, on the rank's device."""
+    {...}, optionally "gen": {generate_event's other arguments}}, an event
+    cache {"npz": path}, optionally {"copy": (b, copies)}, the cache's
+    event rotated by b * 2 pi / copies (bench.load_rotated), or a stack
+    of such events {"stack": [...]} (graph/state.stack_events; the first
+    event's config), on the rank's device."""
+    from gnn_track_finding_tpu_torch.bench import load_rotated
     from gnn_track_finding_tpu_torch.config import PipelineConfig
     from gnn_track_finding_tpu_torch.data.event_cache import load_npz
     from gnn_track_finding_tpu_torch.graph.build import build_graph_state
+    from gnn_track_finding_tpu_torch.graph.state import stack_events
     from gnn_track_finding_tpu_torch.models import toymc
+    if "stack" in event:
+        graphs, cfgs = zip(*(_graph(ctx, e, dtype) for e in event["stack"]))
+        return stack_events(graphs), cfgs[0]
     if "toy" in event:
         tracks, seed = event["toy"]
         ev = toymc.generate_event(num_tracks=tracks, seed=seed,
@@ -367,6 +377,9 @@ def _graph(ctx: RankContext, event: dict, dtype=torch.float64):
     xyzr, vivl, tp, pairs, _, pre = load_npz(event["npz"])
     cfg = PipelineConfig(min_volume=int(vivl[:, 0].min()),
                          max_volume=int(vivl[:, 0].max()))
+    if "copy" in event:
+        return load_rotated(event["npz"], cfg, *event["copy"],
+                            device=ctx.device, dtype=dtype), cfg
     return build_graph_state(xyzr, vivl, tp, pairs, cfg, device=ctx.device,
                              dtype=dtype, mirror=pre["mirror"],
                              component=pre["component"]), cfg
@@ -377,15 +390,24 @@ def _sync(ctx: RankContext) -> None:
         torch.cuda.synchronize(ctx.device)
 
 
-def _schedule_numpy(res, group) -> dict:
-    """A ScheduleResults as numpy, the graph gathered whole."""
-    from gnn_track_finding_tpu_torch.parallel import edge_shard
+def _event_numpy(res) -> dict:
+    """One event's ScheduleResults as numpy (its graph whole)."""
     return {"acc_count": res.acc_count.tolist(),
             "acc_nodes": res.acc_nodes.cpu().numpy(),
             "acc_pvals": res.acc_pvals.cpu().numpy(),
             "cca_rounds": res.cca_rounds.tolist(),
             "overflow": res.overflow.tolist(), "path": res.path,
-            "graph": edge_shard.gather_graph(res.graph, group).to_numpy()}
+            "graph": res.graph.to_numpy()}
+
+
+def _schedule_numpy(res, group):
+    """A ScheduleResults as numpy, the graph gathered whole; a stack's as
+    a list of such dicts, one per event (pipeline.split_events)."""
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
+    whole = res._replace(graph=edge_shard.gather_graph(res.graph, group))
+    per = [_event_numpy(r) for r in pipeline.split_events(whole)]
+    return per if res.graph.batch > 1 else per[0]
 
 
 def bitwise_fields(a, b) -> list:
@@ -577,23 +599,28 @@ def _job_static_parts(ctx: RankContext, event: dict) -> dict:
 
 def _job_fallback(ctx: RankContext, event: dict, limit: str) -> dict:
     """run_sharded with the head cap ("cap") or FastSV's rounds ("rounds")
-    cut one below what the event needs: the body's overflow flags on this
-    rank, the fallbacks counted, and the fallback's results beside the
-    uncut run's and the exact schedule's; the path of the uncut run, the
-    group's part of its program key and whether run_sharded captures."""
+    cut one below what the event needs (on a stack: the most any event
+    needs): the body's overflow flags on this rank, the fallbacks counted,
+    and the fallback's results beside the uncut run's and (one event) the
+    exact schedule's; the path of the uncut run, the group's part of its
+    program key and whether run_sharded captures.  A stack's results come
+    per event."""
     from gnn_track_finding_tpu_torch.graph import cca
+    from gnn_track_finding_tpu_torch.graph.state import unstack_events
     from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import extract
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
     g_full, cfg = _graph(ctx, event)
+    events = unstack_events(g_full)
     g, r = _sharded(ctx, g_full, group)
-    full = edge_shard.run_sharded(g, cfg, group, r)
+    full = edge_shard.run_sharded(g, cfg, group, r, events)
     out = {"full": _schedule_numpy(full, group),
-           "exact": _schedule_numpy(
-               edge_shard.schedule_sharded_exact(g, cfg, group, r), group),
            "key": list(pipeline.program_key(g, cfg, group, r)[-4:]),
            "captures": edge_shard.captures(g, group)}
+    if g.batch == 1:
+        out["exact"] = _schedule_numpy(
+            edge_shard.schedule_sharded_exact(g, cfg, group, r), group)
     mod, name, need = ((extract, "ACC_PULL_CAP", full.acc_count)
                        if limit == "cap" else
                        (cca, "R_CAP", full.cca_rounds))
@@ -603,7 +630,7 @@ def _job_fallback(ctx: RankContext, event: dict, limit: str) -> dict:
         out["overflow"] = edge_shard.schedule_sharded(
             g, cfg, group, r).overflow.tolist()
         before = pipeline.fallbacks
-        fell = edge_shard.run_sharded(g, cfg, group, r)
+        fell = edge_shard.run_sharded(g, cfg, group, r, events)
         out["fallbacks"] = pipeline.fallbacks - before
     finally:
         setattr(mod, name, keep)
@@ -611,78 +638,184 @@ def _job_fallback(ctx: RankContext, event: dict, limit: str) -> dict:
     return out
 
 
-def _job_captured(ctx: RankContext, event: dict, reps: int = 5) -> dict:
-    """run_sharded on one event where it captures (an NCCL group on the
-    card): its path; the fields in which its first call (capture and
-    replay), a replay and a replay under torch.cuda.set_sync_debug_mode
-    ("error") differ bit for bit from the eager body's run; the first
-    call's results, graph gathered; the per-event wall of run_sharded and
-    of the eager body, best of `reps` in turns (each ended by the
-    candidates' readback); capture and instantiate seconds, the graph
+def _replay_ms(prog, reps: int = 3) -> float:
+    """One replay of a captured program on the device (CUDA events), the
+    best of `reps`."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        prog.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _job_captured(ctx: RankContext, event: dict, reps: int = 5,
+                  check_kernels: bool = False) -> dict:
+    """run_sharded on one event or a stack where it captures (an NCCL
+    group on the card): its path; the fields in which its first call
+    (capture and replay), a replay and a replay under
+    torch.cuda.set_sync_debug_mode("error") differ bit for bit from the
+    eager body's run; the first call's results, graph gathered (per event
+    on a stack); the wall of run_sharded against the eager body (one
+    event) or against the stack's events through run_sharded one by one
+    (a stack: "in_turn", each event its own captured program), best of
+    `reps` in turns (each ended by the candidates' readback); one
+    replay's device time, capture and instantiate seconds, the graph
     pool, the kernels' launches per replay, the collectives of the eager
     run (one run's census) and of the first call (warm-up and capture),
-    and the fallbacks."""
+    and the fallbacks.  A stack also gives the fields in which each event
+    differs bit for bit from its single-device batched replay
+    (pipeline.run_schedule_batched) and each rank's live edges; with
+    check_kernels, both kernels against their plain versions on the
+    owner rows, and their inputs (_owner_kernel_checks)."""
     import torch.distributed as dist
 
+    from gnn_track_finding_tpu_torch.graph.state import unstack_events
     from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
     g_full, cfg = _graph(ctx, event)
+    events = unstack_events(g_full)
     g, r = _sharded(ctx, g_full, group)
     pipeline.clear_programs()
     before = pipeline.fallbacks
     with collect.census() as census:
         eager = edge_shard.schedule_sharded(g, cfg, group, r)
     with collect.census() as first_census:
-        first = edge_shard.run_sharded(g, cfg, group, r)
+        first = edge_shard.run_sharded(g, cfg, group, r, events)
     prog = pipeline.captured_program(g, cfg, group, r)
-    replay = edge_shard.run_sharded(g, cfg, group, r)
+    replay = edge_shard.run_sharded(g, cfg, group, r, events)
     _sync(ctx)
     torch.cuda.set_sync_debug_mode("error")
     try:
         quiet = prog.replay(g, r)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    out = {"path": first.path, "programs": len(pipeline._PROGRAMS),
+    path = first.path[0] if g.batch > 1 else first.path
+    out = {"path": path, "programs": len(pipeline._PROGRAMS),
            "differs": {"first": bitwise_fields(eager, first),
                        "replay": bitwise_fields(eager, replay),
                        "sync_debug": bitwise_fields(eager, quiet)},
            "result": _schedule_numpy(first, group),
+           "replay_ms": _replay_ms(prog),
            "capture_s": prog.capture_seconds,
            "instantiate_s": prog.instantiate_seconds,
            "pool_bytes": prog.pool_bytes, "launches": prog.launches,
            "census": census, "first_call_collectives": len(first_census),
-           "bucket": r.bucket, "walls": {"captured": [], "eager": []}}
-    runs = {"captured": lambda: edge_shard.run_sharded(g, cfg, group, r),
-            "eager": lambda: edge_shard.schedule_sharded(g, cfg, group, r)}
+           "bucket": r.bucket}
+    runs = {"captured": lambda: edge_shard.run_sharded(
+        g, cfg, group, r, events).acc_count}
+    if g.batch > 1:
+        whole = first._replace(graph=edge_shard.gather_graph(first.graph,
+                                                             group))
+        out["paths"] = list(first.path)
+        out["single_differs"] = [
+            bitwise_fields(a, b) for a, b in zip(
+                pipeline.split_events(whole),
+                pipeline.run_schedule_batched(events, cfg))]
+        out["live_edges"] = int(g.edge_mask.sum())
+        blocks = [_sharded(ctx, e, group) for e in events]
+        for g_b, r_b in blocks:         # capture each event's program
+            edge_shard.run_sharded(g_b, cfg, group, r_b)
+        runs["in_turn"] = lambda: torch.stack([
+            edge_shard.run_sharded(g_b, cfg, group, r_b).acc_count
+            for g_b, r_b in blocks])
+    else:
+        runs["eager"] = lambda: edge_shard.schedule_sharded(
+            g, cfg, group, r).acc_count
+    out["walls"] = {name: [] for name in runs}
     for _ in range(reps):
         for name, run in runs.items():
             dist.barrier(group)
             _sync(ctx)
             t0 = time.perf_counter()
-            run().acc_count.tolist()
+            run().tolist()
             out["walls"][name].append(time.perf_counter() - t0)
+    if check_kernels:
+        out["kernel_checks"], out["kernel_inputs"] = _owner_kernel_checks(
+            g, cfg, group, r)
     out["fallbacks"] = pipeline.fallbacks - before
     return out
 
 
-def _job_batched(ctx: RankContext, events: list, shape) -> dict:
-    """run_batched over a mesh of `shape` (the programs cleared first):
-    this rank's events' gathered states and candidates, each with its
-    path and the number of programs cached after the batch."""
+def _job_batched(ctx: RankContext, events: list, shape, reps: int = 0,
+                 check_kernels: bool = False) -> dict:
+    """run_batched over a mesh of `shape` (the programs cleared and the
+    kernels' counters zeroed first): this rank's events' gathered states
+    and candidates, each with its path and the number of programs cached
+    after the batch ("events"); the census of the run's collectives; the
+    kernels' launches; this rank's live edges in each chunk's block
+    ("live_edges") and, on the card, the peak allocation.  With reps, the
+    wall of run_batched against this rank's events through
+    edge_shard.run_sharded one by one (each routed, sharded and gathered
+    on its own), best of `reps` in turns; with check_kernels, both
+    kernels against their plain versions on the owner rows of this rank's
+    first chunk (_owner_kernel_checks, its inputs on rank 0)."""
+    import torch.distributed as dist
+
+    from gnn_track_finding_tpu_torch.graph.state import stack_events
     from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, collect,
+                                                 distinct_kernel)
+    from gnn_track_finding_tpu_torch.parallel import edge_shard
     from gnn_track_finding_tpu_torch.parallel import mesh as pmesh
     graphs, cfgs = zip(*(_graph(ctx, e) for e in events))
+    graphs, cfg = list(graphs), cfgs[0]
+    mesh = pmesh.make_mesh(shape)
+    lo, hi = pmesh.event_slice(len(graphs), mesh.data_index, shape[0])
+    mine = graphs[lo:hi]
+    chunks = [[mine[i] for i in c] for c in pmesh.batch_chunks(mine)]
+    blocks = [edge_shard.shard_graph(stack_events(c), mesh.edge_group)
+              for c in chunks]
+    out = {"live_edges": [int(b.edge_mask.sum()) for b in blocks],
+           "events": {}}
     pipeline.clear_programs()
-    out = {}
-    for i, res in pmesh.run_batched(list(graphs), cfgs[0],
-                                    pmesh.make_mesh(shape)):
-        out[i] = {"acc_count": res.acc_count.tolist(),
-                  "acc_nodes": res.acc_nodes.cpu().numpy(),
-                  "acc_pvals": res.acc_pvals.cpu().numpy(),
-                  "graph": res.graph.to_numpy(), "path": res.path,
-                  "programs": len(pipeline._PROGRAMS)}
+    cluster_kernel.cluster_core.launches = 0
+    distinct_kernel.distinct_counts.launches = 0
+    if ctx.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+    with collect.census() as out["census"]:
+        results = pmesh.run_batched(graphs, cfg, mesh)
+    out["launches"] = pipeline.kernel_launches()
+    for i, res in results:
+        out["events"][i] = {**_event_numpy(res),
+                            "programs": len(pipeline._PROGRAMS)}
+    if ctx.device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+    if reps:
+        def in_turn():
+            for g_full in mine:
+                g, r = _sharded(ctx, g_full, mesh.edge_group)
+                res = edge_shard.run_sharded(g, cfg, mesh.edge_group, r)
+                edge_shard.gather_graph(res.graph, mesh.edge_group)
+                res.acc_count.tolist()
+
+        runs = {"batched": lambda: [r.acc_count.tolist() for _, r in
+                                    pmesh.run_batched(graphs, cfg, mesh)],
+                "in_turn": in_turn}
+        out["walls"] = {name: [] for name in runs}
+        for _ in range(reps):
+            for name, run in runs.items():
+                dist.barrier()
+                _sync(ctx)
+                t0 = time.perf_counter()
+                run()
+                _sync(ctx)
+                out["walls"][name].append(time.perf_counter() - t0)
+    if check_kernels:
+        g = blocks[0]
+        r = edge_shard.routing_shard(edge_shard.build_owner_routing(
+            stack_events(chunks[0]), shape[1]), mesh.edge_index)
+        out["kernel_checks"], inputs = _owner_kernel_checks(
+            g, cfg, mesh.edge_group, r)
+        if ctx.rank == 0:
+            out["kernel_inputs"] = inputs
     return out
 
 

@@ -321,9 +321,10 @@ def sharded_volume7(tmp_path_factory):
     """schedule_sharded on volume 7 at float64 over 2 gloo ranks on
     cuda:0 and over 1 NCCL rank (spawned processes; the kernels are built
     here first, so the ranks load them), and the single-device run.  The
-    NCCL rank also runs the captured program (runs["nccl_captured"]) and
+    NCCL rank also runs the captured program (runs["nccl_captured"]),
     run_batched on a (1, 1) mesh over volume 7 twice
-    (runs["nccl_batched"])."""
+    (runs["nccl_batched"]) and run_sharded on two volume-7 copies stacked
+    (runs["nccl_stacked"])."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from gnn_track_finding_tpu_torch import _build
@@ -336,10 +337,12 @@ def sharded_volume7(tmp_path_factory):
     nccl = testing.spawn_ranks(
         "sequence", 1, root / "nccl", backend="nccl", device="cuda:0",
         jobs=[("schedule", schedule), ("captured", dict(event=event, reps=1)),
-              ("batched", dict(events=[event] * 2, shape=(1, 1)))])
+              ("batched", dict(events=[event] * 2, shape=(1, 1))),
+              ("captured", dict(event={"stack": [event] * 2}, reps=1))])
     runs = {"gloo": gloo.join()}
     (seq,) = nccl.join()
-    runs.update(nccl=[seq[0]], nccl_captured=seq[1], nccl_batched=seq[2])
+    runs.update(nccl=[seq[0]], nccl_captured=seq[1],
+                nccl_batched=seq[2]["events"], nccl_stacked=seq[3])
     ref = pipeline.full_pipeline_results(
         _volume7(torch.device("cuda"), torch.float64), CFG)
     return runs, ref
@@ -419,6 +422,25 @@ def test_run_batched_replays_one_program_per_nccl_rank(sharded_volume7):
                                       ref.acc_nodes.cpu().numpy())
         assert not testing.states_differ(ref.graph.to_numpy(), o["graph"],
                                          rtol=0.0)
+
+
+@pytest.mark.gpu
+def test_nccl_rank_replays_a_stacked_sharded_batch(sharded_volume7):
+    """Two volume-7 copies stacked and run through run_sharded on the NCCL
+    rank of one: one captured program, its first call, a replay and a
+    replay under sync debug mode "error" bitwise the eager body's run,
+    each event bitwise its single-device batched replay and at the
+    single-device counts, 2 / 3 kernel launches per replay, no
+    fallback."""
+    runs, ref = sharded_volume7
+    cap = runs["nccl_stacked"]
+    assert cap["path"] == "captured" and cap["paths"] == ["captured"] * 2
+    assert cap["differs"] == {"first": [], "replay": [], "sync_debug": []}
+    assert cap["single_differs"] == [[], []]
+    assert cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3}
+    for out in cap["result"]:
+        assert out["acc_count"] == ref.acc_count.tolist() == [1055, 110, 2]
+    assert cap["fallbacks"] == 0
 
 
 def _bitwise_diff(a, b):

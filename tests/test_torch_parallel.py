@@ -26,6 +26,7 @@ tests/test_torch_stages.py and tests/test_torch_pipeline.py."""
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -35,6 +36,7 @@ from gnn_track_finding_tpu.graph.build import build_graph_state as jax_build
 from gnn_track_finding_tpu.models import pipeline as jax_pipeline
 from gnn_track_finding_tpu.models import toymc
 from gnn_track_finding_tpu.parallel import edge_shard as jax_edge_shard
+from gnn_track_finding_tpu.parallel import mesh as jax_mesh
 
 from gnn_track_finding_tpu_torch import testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
@@ -103,6 +105,7 @@ def worlds(tmp_path_factory):
     prepared = jax_pipeline._prepare_jit(jg, JCFG)
     staged = jax_pipeline._stage_jit(prepared, JCFG, 1, None)
     vol7 = str(VOL7_NPZ)
+    batch = [_toy(*e) for e in BATCH]
     handles = {
         1: testing.spawn_ranks("collect", 1, root / "w1",
                                timeout=JOIN_TIMEOUT),
@@ -117,16 +120,19 @@ def worlds(tmp_path_factory):
             ("static_parts", dict(event=DENSE)),
             ("audit", dict(event=DENSE)),
             ("fallback", dict(event=_toy(*SCHEDULE_TOY), limit="cap")),
-            ("fallback", dict(event=_toy(*SCHEDULE_TOY), limit="rounds"))]),
+            ("fallback", dict(event=_toy(*SCHEDULE_TOY), limit="rounds")),
+            ("batched", dict(events=batch, shape=(1, 2))),
+            ("batched", dict(events=[{"npz": vol7}] * 2, shape=(1, 2))),
+            ("audit", dict(event={"stack": batch})),
+            ("fallback", dict(event={"stack": batch}, limit="cap"))]),
         4: testing.spawn_ranks("sequence", 4, root / "w4",
                                timeout=JOIN_TIMEOUT, jobs=[
             ("schedule", dict(event=_toy(*SCHEDULE_TOY), exact=True)),
-            ("batched", dict(events=[_toy(*e) for e in BATCH],
-                             shape=(2, 2))),
-            ("multihost", dict(events=[_toy(*e) for e in BATCH],
-                               num_events=10)),
+            ("batched", dict(events=batch, shape=(2, 2))),
+            ("multihost", dict(events=batch, num_events=10)),
             ("static_parts", dict(event=DENSE)),
-            ("audit", dict(event=DENSE))])}
+            ("audit", dict(event=DENSE)),
+            ("batched", dict(events=batch, shape=(1, 4)))])}
     ref = {"prepared": prepared, "staged": staged}
     m2 = jax_edge_shard.edge_mesh(2)
     r2 = jax_edge_shard.build_owner_routing(jg, 2)
@@ -145,13 +151,38 @@ def worlds(tmp_path_factory):
         ref[f"schedule{d}"] = jax_edge_shard.schedule_sharded(
             JCFG, m, jax_edge_shard.build_owner_routing(sg, d))(
             jax_edge_shard.shard_graph(sg, m))
+    # JAX's batch over a (2, 2) mesh of the virtual devices (mesh.py:69-89),
+    # and the same program with the accepted heads and p-values
+    # (full_pipeline_results in place of full_pipeline), the earlier
+    # programs released first
+    jax.clear_caches()
+    jgraphs = [_jax_graph(*e) for e in BATCH]
+    jmesh = jax_mesh.make_mesh((2, 2))
+    final, accepted, cand_nodes = jax_mesh.run_batched(jgraphs, JCFG, jmesh)
+    stacked = jax_mesh.shard_batched_graph(jax_mesh.stack_events(jgraphs),
+                                           jmesh)
+    heads = jax.jit(jax.vmap(
+        lambda g: jax_pipeline.full_pipeline_results(g, JCFG)[1:]),
+        in_shardings=(jax_mesh.batched_graph_sharding(stacked, jmesh),))(
+        stacked)
+    ref["run_batched"] = {
+        "accepted": np.asarray(accepted), "cand_nodes": np.asarray(cand_nodes),
+        "final": _arrays(final),
+        **dict(zip(("acc_count", "acc_nodes", "acc_pvals"),
+                   (np.asarray(h) for h in heads)))}
     out = {d: h.join() for d, h in handles.items()}
     w2, w4 = out[2], out[4]
     return {"ref": ref, "collect1": out[1],
             "collect2": [r[0] for r in w2], "stages": w2[0][1],
             "schedule2": w2[0][2], "vol7": w2[0][3],
             "schedule4": w4[0][0],
-            "batched": {k: v for r in w4 for k, v in r[1].items()},
+            "batched": {k: v for r in w4 for k, v in r[1]["events"].items()},
+            "batched_ranks": [r[1] for r in w4],
+            "edge_batched2": [r[8] for r in w2],
+            "edge_batched4": [r[5] for r in w4],
+            "vol7_batched": [r[9] for r in w2],
+            "audit_stack2": [r[10] for r in w2],
+            "fallback_stack": [r[11] for r in w2],
             "multihost": [r[2] for r in w4],
             "exact_differs2": [r[2]["exact_differs"] for r in w2],
             "exact_differs4": [r[0]["exact_differs"] for r in w4],
@@ -322,9 +353,17 @@ def test_dense_stage_census_has_no_all_to_all(worlds):
     assert {"reduce_scatter_sum", "reduce_scatter_or", "all_gather"} <= ops
 
 
+def _program_collectives(census):
+    """The collectives of a census that the schedule's program issued (not
+    gather_graph's, which brings the final state back whole)."""
+    return [c for c in census if c["caller"] != "gather_graph"]
+
+
 def test_run_batched_matches_single_device(worlds):
     """Four toy events on a (2, 2) mesh: each event's candidates and final
-    state equal the single-device run's (test_parallel.py:15-49)."""
+    state equal the single-device run's (test_parallel.py:15-49); each data
+    rank's two events run as one edge-partitioned program per rank, so the
+    census shows one program's 64 collectives, not one per event."""
     got = worlds["batched"]
     assert sorted(got) == list(range(len(BATCH)))
     for i, ev in enumerate(BATCH):
@@ -336,6 +375,148 @@ def test_run_batched_matches_single_device(worlds):
         bad = testing.states_differ(ref.graph.to_numpy(), out["graph"],
                                     rtol=0.0)
         assert not bad, (i, bad)
+    for rank, r in enumerate(worlds["batched_ranks"]):
+        assert len(_program_collectives(r["census"])) == 64, rank
+        assert {o["path"] for o in r["events"].values()} == {"eager"}
+
+
+# the sharded bars: bitwise, but grad_stats' variance columns, held to
+# 1e-12 of their second moment (testing.states_differ)
+SHARDED_BARS = dict(rtol=0.0, looser={"grad_stats": 1e-12})
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_run_batched_on_an_edge_group_runs_one_program(worlds, d):
+    """BATCH on a (1, d) mesh: the four events' union edge-partitioned over
+    d ranks as one program per rank (64 collectives, the kernels' plain
+    versions launched once per clustering round and reweight table, not
+    per event); each event's candidates equal its single-device run's
+    exactly, its state within the sharded bars; every rank's live edges
+    add up to the union's."""
+    ranks = worlds[f"edge_batched{d}"]
+    singles = [_port_graph(*ev) for ev in BATCH]
+    live = sum(int(g.edge_mask.sum()) for g in singles)
+    assert sum(r["live_edges"][0] for r in ranks) == live
+    for rank, r in enumerate(ranks):
+        assert len(_program_collectives(r["census"])) == 64, rank
+        assert r["launches"] == {"gmr_cluster": 0, "distinct_counts": 0}
+        assert sorted(r["events"]) == list(range(len(BATCH)))
+        for i, g in enumerate(singles):
+            ref = pipeline.full_pipeline_results(g, CFG)
+            out = r["events"][i]
+            assert out["path"] == "eager"
+            assert out["acc_count"] == ref.acc_count.tolist()
+            assert out["cca_rounds"] == ref.cca_rounds.tolist()
+            np.testing.assert_array_equal(out["acc_nodes"],
+                                          ref.acc_nodes.numpy())
+            np.testing.assert_array_equal(out["acc_pvals"],
+                                          ref.acc_pvals.numpy())
+            bad = testing.states_differ(ref.graph.to_numpy(), out["graph"],
+                                        **SHARDED_BARS)
+            assert not bad, (rank, i, bad)
+
+
+def test_run_batched_matches_jax_per_event(worlds):
+    """The (2, 2) mesh's events against JAX's run_batched on a (2, 2) mesh
+    of virtual devices: accepted candidates and the final `active` mask
+    exact, every field of the final state within the JAX bars, and the
+    accepted p-values of the same program's heads at pval_xy rtol 1e-9 /
+    pval_zr rtol 1e-8."""
+    jr = worlds["ref"]["run_batched"]
+    got = worlds["batched"]
+    for b in range(len(BATCH)):
+        out = got[b]
+        want = [jr["cand_nodes"][b, i][jr["accepted"][b, i]]
+                for i in range(CFG.num_iterations)]
+        assert out["acc_count"] == [len(w) for w in want]
+        assert out["acc_count"] == np.asarray(jr["acc_count"][b]).tolist()
+        for i, w in enumerate(want):
+            np.testing.assert_array_equal(out["acc_nodes"][i, :len(w)], w)
+            for col, rtol in enumerate((1e-9, 1e-8)):
+                np.testing.assert_allclose(
+                    out["acc_pvals"][i, :len(w), col],
+                    jr["acc_pvals"][b, i, :len(w), col], rtol=rtol,
+                    atol=1e-300, err_msg=f"event {b}")
+        final = {k: v[b] for k, v in jr["final"].items()}
+        np.testing.assert_array_equal(out["graph"]["active"], final["active"])
+        bad = testing.states_differ(final, out["graph"], rtol=1e-12,
+                                    atol=1e-14, looser=LOOSER)
+        assert not bad, (b, bad)
+
+
+def test_stacked_schedule_sharded_reads_nothing_on_the_host(worlds):
+    """BATCH stacked and edge-partitioned at D = 2: the whole stacked
+    schedule_sharded under testing.HostReads reads nothing on the host on
+    either rank."""
+    for rank, a in enumerate(worlds["audit_stack2"]):
+        assert a["reads"] == [], (rank, a["reads"])
+        assert {"c10d.allreduce_.default", "c10d.alltoall_base_.default",
+                "c10d._allgather_base_.default"} <= set(a["ops"]), rank
+
+
+def test_stacked_overflow_reruns_only_that_event(worlds):
+    """BATCH stacked at D = 2 with the head cap cut one below the largest
+    count (event 1's 5): only event 1 overflows, with the same flags on
+    both ranks; it alone reruns through the exact fallback on every rank,
+    counted once; every event equals the uncut run."""
+    ranks = worlds["fallback_stack"]
+    flags = [o["overflow"] for o in ranks]
+    assert flags == [flags[0]] * len(ranks)
+    assert [any(f) for f in flags[0]] == [False, True, False, False]
+    for rank, o in enumerate(ranks):
+        assert o["fallbacks"] == 1
+        assert [e["path"] for e in o["full"]] == ["eager"] * len(BATCH)
+        assert [e["path"] for e in o["fallback"]] == [
+            "eager", "exact", "eager", "eager"]
+        for b, (fell, full) in enumerate(zip(o["fallback"], o["full"])):
+            assert not any(fell["overflow"]), (rank, b)
+            assert fell["acc_count"] == full["acc_count"]
+            assert fell["cca_rounds"] == full["cca_rounds"]
+            for it, k in enumerate(full["acc_count"]):
+                np.testing.assert_array_equal(fell["acc_nodes"][it, :k],
+                                              full["acc_nodes"][it, :k])
+                np.testing.assert_array_equal(fell["acc_pvals"][it, :k],
+                                              full["acc_pvals"][it, :k])
+            bad = testing.states_differ(full["graph"], fell["graph"],
+                                        **SHARDED_BARS)
+            assert not bad, (rank, b, bad)
+
+
+def test_stacked_volume7_sharded_counts(worlds):
+    """Two volume-7 copies stacked on a (1, 2) mesh: each gives the
+    single-device port's counts [1055, 110, 2], in one program per rank."""
+    for rank, r in enumerate(worlds["vol7_batched"]):
+        assert [r["events"][i]["acc_count"] for i in (0, 1)] == [
+            [1055, 110, 2]] * 2, rank
+        assert len(_program_collectives(r["census"])) == 64, rank
+
+
+@pytest.fixture(scope="module")
+def vol7_graph():
+    return testing._graph(testing.RankContext(0, 1, torch.device("cpu")),
+                          {"npz": str(VOL7_NPZ)})[0]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_union_routing_keeps_each_events_owners(vol7_graph, d):
+    """The routing of a union (stack-then-shard): every edge of event b
+    keeps the owner rank of its single event's routing (N % D == 0), the
+    bucket, part of the program key, grows with B (volume 7 stacked 1, 2
+    and 4 times), and the union refuses a D that does not divide its
+    B*N nodes and B*E edges, as one event does."""
+    singles = [_port_graph(*ev) for ev in BATCH]
+    e = singles[0].num_padded_edges
+    union = tstate.stack_events(singles)
+    r = edge_shard.build_owner_routing(union, d)
+    with pytest.raises(ValueError):
+        edge_shard.build_owner_routing(union, 3)
+    for k, g in enumerate(singles):
+        np.testing.assert_array_equal(
+            r.owner[k * e:(k + 1) * e].numpy(),
+            edge_shard.build_owner_routing(g, d).owner.numpy())
+    buckets = [edge_shard.build_owner_routing(
+        tstate.stack_events([vol7_graph] * b), d).bucket for b in (1, 2, 4)]
+    assert buckets[0] < buckets[1] < buckets[2], buckets
 
 
 def test_local_event_slice_and_scaling_report(worlds):
