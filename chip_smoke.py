@@ -167,8 +167,9 @@ program run op by op), so their rows stay comparable with earlier runs:
      single-event sharded replays in turn; both kernels' device times,
      plain times and bounds on the union's owner rows; then
      multihost.scaling_report over the 4 copies (sequential single-event
-     replays against one batched program), its checksums equal.  Its
-     record is printed as one JSON line, {"batched_sharded": ...}.
+     replays against one batched program), its checksums equal and its
+     data ranks min(4 events, 1 rank).  Its record is printed as one
+     JSON line, {"batched_sharded": ...}.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -1637,9 +1638,10 @@ def batched_sharded_phase(card, cuda):
     # 1 NCCL rank: the 4-copy stack through run_sharded, then
     # multihost.scaling_report over the 4 copies
     t0 = time.perf_counter()
+    nccl_world = 1                  # NCCL refuses two ranks on one card
     (nccl,) = testing.spawn_ranks(
-        "sequence", 1, out_dir / "nccl", backend="nccl", device="cuda:0",
-        timeout=400,
+        "sequence", nccl_world, out_dir / "nccl", backend="nccl",
+        device="cuda:0", timeout=400,
         jobs=[("captured", dict(event={"stack": copies(4)}, reps=3,
                                 check_kernels=True)),
               ("multihost", dict(events=copies(4), num_events=4))]).join()
@@ -1752,12 +1754,16 @@ def batched_sharded_phase(card, cuda):
         "live_edges": cap["live_edges"], "bucket": cap["bucket"]}
 
     rep = mh["report"]
-    print(f"multihost.scaling_report over the 4 copies, NCCL world of 1: "
-          f"sequential (each event its own captured replay) "
+    print(f"multihost.scaling_report over the 4 copies, NCCL world of "
+          f"{nccl_world}: {rep['devices']} data rank(s) used, sequential "
+          f"(each event its own captured replay) "
           f"{rep['sequential_s']:.4f} s, parallel (one batched program) "
           f"{rep['parallel_s']:.4f} s, scaling efficiency "
           f"{rep['scaling_efficiency']:.3f}; checksums "
           f"{rep['sequential_checksum']} / {rep['parallel_checksum']}")
+    check(rep["devices"] == min(4, nccl_world),
+          f"scaling_report counts {rep['devices']} data ranks, not "
+          f"min(4 events, {nccl_world} ranks)")
     check(rep["sequential_checksum"] == rep["parallel_checksum"]
           == sum(map(sum, accepted)), f"scaling_report checksums {rep}")
     record["scaling_report"] = rep

@@ -74,8 +74,14 @@ def scaling_report(graphs: Sequence, cfg) -> dict:
     rank (mesh.run_batched on a (world, 1) mesh: each rank's
     local_event_slice stacked, on a CUDA device one replay), each side
     timed after a warm-up run that also gives its checksum (the total
-    accepted count).  graphs: the whole batch on this rank's device."""
+    accepted count).  The report counts, and the efficiency divides by,
+    the data ranks that run events, min(len(graphs), world), as JAX's
+    mesh of min(len(graphs), len(jax.devices())) data devices does
+    (multihost.py:80, :92): ranks past the batch get an empty slice and
+    do no work.  graphs: the whole batch on this
+    rank's device."""
     rank, world = _world()
+    used = min(len(graphs), world)
     mesh = pmesh.make_mesh((world, 1)) if dist.is_initialized() else None
 
     def sequential():
@@ -107,8 +113,8 @@ def scaling_report(graphs: Sequence, cfg) -> dict:
     if world > 1:
         dist.all_reduce(sums)
     t_seq = float(sums[2])
-    return {"events": len(graphs), "devices": world,
+    return {"events": len(graphs), "devices": used,
             "sequential_s": t_seq, "parallel_s": t_par,
-            "scaling_efficiency": t_seq / (t_par * world),
+            "scaling_efficiency": t_seq / (t_par * used),
             "sequential_checksum": int(sums[0]),
             "parallel_checksum": int(sums[1])}

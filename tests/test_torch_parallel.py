@@ -132,7 +132,8 @@ def worlds(tmp_path_factory):
             ("multihost", dict(events=batch, num_events=10)),
             ("static_parts", dict(event=DENSE)),
             ("audit", dict(event=DENSE)),
-            ("batched", dict(events=batch, shape=(1, 4)))])}
+            ("batched", dict(events=batch, shape=(1, 4))),
+            ("multihost", dict(events=batch[:2], num_events=2))])}
     ref = {"prepared": prepared, "staged": staged}
     m2 = jax_edge_shard.edge_mesh(2)
     r2 = jax_edge_shard.build_owner_routing(jg, 2)
@@ -184,6 +185,7 @@ def worlds(tmp_path_factory):
             "audit_stack2": [r[10] for r in w2],
             "fallback_stack": [r[11] for r in w2],
             "multihost": [r[2] for r in w4],
+            "multihost_short": [r[6] for r in w4],
             "exact_differs2": [r[2]["exact_differs"] for r in w2],
             "exact_differs4": [r[0]["exact_differs"] for r in w4],
             "static2": [r[4] for r in w2], "static4": [r[3] for r in w4],
@@ -536,6 +538,24 @@ def test_local_event_slice_and_scaling_report(worlds):
     ref = sum(int(pipeline.full_pipeline_results(_port_graph(*ev), CFG)
                   .acc_count.sum()) for ev in BATCH)
     assert rep["sequential_checksum"] == ref
+
+
+def test_scaling_report_counts_the_data_ranks_it_uses(worlds):
+    """2 events on 4 ranks: ranks 2 and 3 get empty slices, so the report
+    counts and divides by the 2 data ranks that run events, as JAX's
+    min(len(graphs), len(jax.devices())) mesh does (multihost.py:80-92);
+    every rank's checksums equal the single-device port's sum."""
+    out = worlds["multihost_short"]
+    assert [max(hi - lo, 0) for lo, hi in (o["slice"] for o in out)] == [
+        1, 1, 0, 0]
+    ref = sum(int(pipeline.full_pipeline_results(_port_graph(*ev), CFG)
+                  .acc_count.sum()) for ev in BATCH[:2])
+    assert ref > 0
+    for rep in (o["report"] for o in out):
+        assert rep["events"] == 2 and rep["devices"] == 2
+        assert rep["scaling_efficiency"] == pytest.approx(
+            rep["sequential_s"] / (rep["parallel_s"] * 2), rel=1e-12)
+        assert rep["parallel_checksum"] == rep["sequential_checksum"] == ref
 
 
 def test_volume7_sharded_counts(worlds):
