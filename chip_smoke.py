@@ -169,7 +169,19 @@ program run op by op), so their rows stay comparable with earlier runs:
      multihost.scaling_report over the 4 copies (sequential single-event
      replays against one batched program), its checksums equal and its
      data ranks min(4 events, 1 rank).  Its record is printed as one
-     JSON line, {"batched_sharded": ...}.
+     JSON line, {"batched_sharded": ...};
+ 15. the stage and part profile (gnn_track_finding_tpu_torch/
+     profile_stages.profile) of the full event at float64 and float32 and
+     of 4 rotated copies stacked at float64: each stage and part of the
+     schedule captured alone, with its device time (L2 flushed and warm),
+     launches, byte floor, launch floor and the rest of each stage, one
+     FastSV round, and the whole schedule's replay.  It fails if a
+     captured part differs from its eager output at float64, if the leaf
+     rows do not hold 2 gmr_cluster and 3 distinct_counts launches, if the
+     stage rows' kernel time sums to more than 25% off one replay's (their
+     CUDA-event times are printed beside), or if FastSV needed more than
+     R_CAP rounds.  Its summary is printed as one JSON line,
+     {"stage_profile": ...}.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -190,6 +202,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from gnn_track_finding_tpu_torch.utils.timing import (busy_share, call_ms,
+                                                      device_ms, sync_time)
 
 REPO = Path(__file__).resolve().parent
 VOL7 = REPO / ".event_cache" / "event_fafb3309e4598e9b.npz"
@@ -235,74 +250,6 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(title: str) -> None:
     print(f"\n=== {title}", flush=True)
-
-
-def sync_time(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Time per call of fn over reps back-to-back calls (CUDA events): the
-    device time, or the host's cost per call where that is larger."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
-    """Device time per call of fn: reps calls captured into one CUDA graph
-    (the kernel wrappers launch on the current stream, which the capture
-    takes over), the graph replayed between CUDA events, so the host's cost
-    per call does not enter; the best of three replays.  fn must not
-    synchronise with the host.
-
-    Without flush the repeats find their inputs in the L2 cache wherever
-    they fit (warm).  With flush, a device buffer larger than the L2, each
-    captured call follows a write of the whole buffer, so fn reads its
-    inputs from HBM (cold); a graph of the writes alone is timed the same
-    way and its time taken off."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-
-    def graph_ms(body):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                body()
-        graph.replay()
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            best = min(best, start.elapsed_time(end))
-        return best
-
-    if flush is None:
-        return graph_ms(fn) / reps
-
-    def cold():
-        flush.zero_()
-        fn()
-
-    return (graph_ms(cold) - graph_ms(flush.zero_)) / reps
 
 
 def bound(n_bytes: float, n_ops: float, dtype) -> dict:
@@ -1094,36 +1041,6 @@ def state_diff(a, b) -> list:
     return bad
 
 
-def busy_share(fn):
-    """fn() once under torch.profiler -> (the union of the device's
-    intervals over the call's wall, or None when the trace holds no device
-    activity; the wall in s; the device events' count and their time by
-    name, longest first)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        return None, wall, 0, []
-    by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) * 1e-3
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in device):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return (busy * 1e-6 / wall, wall, len(device),
-            sorted(by_name.items(), key=lambda kv: -kv[1]))
-
-
 def captured_phase(card, cuda, graph, counts):
     """Phase 11: run_pipeline_fast / stream_pipeline through the captured
     CUDA graph of each pad bucket.  Returns the record of the phase (the
@@ -1778,6 +1695,96 @@ def batched_sharded_phase(card, cuda):
     return record
 
 
+def profile_phase(card, cuda):
+    """Phase 15: profile_stages.profile (the port's stage and part
+    profiler) on the full event at float64 and float32 and on 4 rotated
+    copies stacked at float64: the table of each, and four checks that
+    fail the run (each captured part bitwise its eager output at float64;
+    2 gmr_cluster and 3 distinct_counts launches over the leaf rows, as
+    in the whole schedule; the stage rows' kernel time within 25% of
+    one replay's, their CUDA-event times printed beside; FastSV's needed
+    rounds at most cca.R_CAP in every extraction).  Returns the phase's
+    record."""
+    from gnn_track_finding_tpu_torch import bench, profile_stages
+    from gnn_track_finding_tpu_torch.graph import cca
+    from gnn_track_finding_tpu_torch.graph.state import stack_events
+    from gnn_track_finding_tpu_torch.models import pipeline
+    f64, f32 = torch.float64, torch.float32
+    print(f"card: {card}")
+    t_phase = time.perf_counter()
+    pipeline.clear_programs()
+    torch.cuda.empty_cache()
+    cfg = bench.CFG
+    runs = (("full event float64", f64, 1), ("full event float32", f32, 1),
+            ("4 rotated full copies stacked float64", f64, 4))
+    record = {}
+    for label, dtype, copies in runs:
+        t0 = time.perf_counter()
+        g = stack_events([bench.load_rotated(FULL, cfg, c, copies,
+                                             device=cuda, dtype=dtype)
+                          for c in range(copies)])
+        prof = profile_stages.profile(g, cfg)
+        seconds = time.perf_counter() - t0
+        print("\n".join(profile_stages.table(prof, label)))
+        whole = prof.whole()
+        ratio = prof.stage_sum_ms() / whole.device_ms
+        kernel_ratio = prof.stage_sum_ms("kernel_ms") / whole.kernel_ms
+        leaves = prof.leaf_kernels()
+        rounds = [r for per in prof.rounds
+                  for r in (per if isinstance(per, list) else [per])]
+        one_round = [r.device_ms for r in prof.rows if r.level == "round"]
+        not_bitwise = [f"{r.iteration} {r.name}" for r in prof.rows
+                       if not r.bitwise]
+        print(f"{label}: the stage rows sum to {prof.stage_sum_ms():.4f} ms "
+              f"against {whole.device_ms:.4f} ms for one replay of the whole "
+              f"schedule (ratio {ratio:.4f}; their kernels "
+              f"{prof.stage_sum_ms('kernel_ms'):.4f} against "
+              f"{whole.kernel_ms:.4f} ms, ratio {kernel_ratio:.4f}); "
+              f"launches per replay "
+              f"{whole.launches} ({prof.whole().launch_floor_ms:.4f} ms of "
+              f"launch floor at {prof.launch_node_ms * 1e3:.3f} us a graph "
+              f"node); kernels over the leaf rows {leaves}, in the whole "
+              f"replay {whole.kernels}; FastSV rounds needed "
+              f"{prof.rounds} of {cca.R_CAP}, one round "
+              f"{[round(t, 4) for t in one_round]} ms; captured parts not "
+              f"bitwise their eager output: {not_bitwise}; {seconds:.1f} s")
+        if dtype == f64:
+            check(not not_bitwise, f"{label}: captured parts differ from "
+                  f"their eager output: {not_bitwise}")
+        check(leaves == {"gmr_cluster": 2, "distinct_counts": 3}
+              == whole.kernels, f"{label}: kernel launches over the leaf "
+              f"rows {leaves}, in the whole replay {whole.kernels}")
+        # the kernels' own time: the gaps between graph nodes come and go
+        # between replays (~0.34 us a node, PERF.md section 5)
+        check(0.75 <= kernel_ratio <= 1.25, f"{label}: the stage rows' "
+              f"kernels sum to {kernel_ratio:.3f} of one replay's")
+        check(all(r <= cca.R_CAP for r in rounds),
+              f"{label}: FastSV needed {prof.rounds} rounds")
+        record[label] = {
+            "seconds": seconds, "stage_sum_ms": prof.stage_sum_ms(),
+            "replay_ms": whole.device_ms, "ratio": ratio,
+            "stage_sum_kernel_ms": prof.stage_sum_ms("kernel_ms"),
+            "replay_kernel_ms": whole.kernel_ms, "kernel_ratio": kernel_ratio,
+            "launches": whole.launches, "launch_node_ms": prof.launch_node_ms,
+            "leaf_kernels": leaves, "fastsv_rounds": prof.rounds,
+            "one_round_ms": one_round, "accepted": prof.accepted,
+            "rows": {f"{r.iteration} {r.level} {r.name}": [
+                round(r.device_ms, 4), round(r.warm_ms, 4),
+                round(r.kernel_ms, 4), r.launches, round(r.floor_ms, 4)]
+                for r in prof.rows}}
+        del prof, g
+        torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15: {record['seconds']:.1f} s")
+    print(json.dumps({"stage_profile": {
+        k: {key: v[key] for key in (
+            "seconds", "stage_sum_ms", "replay_ms", "ratio",
+            "stage_sum_kernel_ms", "replay_kernel_ms", "kernel_ratio",
+            "launches", "fastsv_rounds")}
+        if isinstance(v, dict) else v for k, v in record.items()}}))
+    return record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1. device")
@@ -2267,6 +2274,9 @@ def main() -> int:
     phase("14. batched x edge-sharded: a data rank's events as one "
           "edge-partitioned program per rank (float64)")
     batched_sharded = batched_sharded_phase(card, cuda)
+
+    phase("15. stage and part profile (profile_stages.profile)")
+    profile_phase(card, cuda)
 
     def batched_sharded_entry(name):
         """A kernel's launches, agreement, times and bound in phase 14."""

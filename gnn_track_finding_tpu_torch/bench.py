@@ -420,6 +420,14 @@ def stream_rate(path, cfg: PipelineConfig, *, device, dtype, n_ev: int = 10,
 
 # ------------------------------------------------------------------- main
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 def _spread(values: list) -> dict:
     return {"median": statistics.median(values), "min": min(values),
             "max": max(values), "all": values}
@@ -447,10 +455,7 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
     f64 = dtype == torch.float64
     suffix = "_float64" if f64 else ""
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], check=True,
-                          capture_output=True, text=True,
-                          timeout=60).stdout.strip().splitlines()[0]
+    card = card_name()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "

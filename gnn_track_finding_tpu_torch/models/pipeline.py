@@ -75,6 +75,13 @@ def cluster_stage(g: GraphState, cfg: PipelineConfig, use_updated: bool,
     update (clustering.py:323-327,372-373)."""
     g = clustering.cluster(g, cfg, use_updated, kl_thresholds, group=group,
                            routing=routing)
+    return cluster_refresh(g, use_updated, group)
+
+
+def cluster_refresh(g: GraphState, use_updated: bool, group=None
+                    ) -> GraphState:
+    """The degree, weight and prior refresh that ends a clustering
+    iteration (clustering.py:323-327,372-373)."""
     g = priors.update_degrees(g, group)
     g = priors.compute_mixture_weights(g, use_updated, group)
     return priors.compute_prior_probabilities(g, use_updated, group)

@@ -231,28 +231,36 @@ def cluster(g: GraphState, cfg: PipelineConfig, use_updated: bool,
                              "routing (parallel/edge_shard.build_owner_routing)")
         x = owner_core_inputs(g, cfg, use_updated, group, routing,
                               kl_thresholds, kc)
-    found_c, pm_c, pc_c, mprior_c, deact_c = cluster_kernel.cluster_core(
+    core = cluster_kernel.cluster_core(
         x.states, x.tab, x.node_xyzr, x.klthr, x.count, chi2_thr=x.chi2_thr,
         cfg=cfg)
     if group is None:
-        # scatter the narrow per-row results back to node space
-        found, pm, pc, mprior, deact = (
-            _expand(v, x.ids, n) for v in (found_c, pm_c, pc_c, mprior_c,
-                                           deact_c))
-    else:
-        d = routing.n_shards
-        rows = n // d
-        res = collect.gather_rows(_expand(torch.cat([
-            found_c[:, None].to(g.dtype), pm_c, pc_c, mprior_c[:, None]],
-            dim=1), x.ids, rows), group)                          # (N, 14)
-        deact = collect.gather_rows(
-            _expand(deact_c.to(torch.uint8), x.ids, rows), group) > 0
-        # owner-major -> node order: node i is row (i % D) * rows + i // D
-        i = torch.arange(n, device=g.device)
-        perm = (i % d) * rows + i // d
-        res, deact = res[perm], deact[perm]
-        found, pm, pc, mprior = res[:, 0] > 0.5, res[:, 1:4], res[:, 4:13], \
-            res[:, 13]
+        return apply_core(g, x, core, kc)
+    found_c, pm_c, pc_c, mprior_c, deact_c = core
+    d = routing.n_shards
+    rows = n // d
+    res = collect.gather_rows(_expand(torch.cat([
+        found_c[:, None].to(g.dtype), pm_c, pc_c, mprior_c[:, None]],
+        dim=1), x.ids, rows), group)                              # (N, 14)
+    deact = collect.gather_rows(
+        _expand(deact_c.to(torch.uint8), x.ids, rows), group) > 0
+    # owner-major -> node order: node i is row (i % D) * rows + i // D
+    i = torch.arange(n, device=g.device)
+    perm = (i % d) * rows + i // d
+    res, deact = res[perm], deact[perm]
+    found, pm, pc, mprior = res[:, 0] > 0.5, res[:, 1:4], res[:, 4:13], \
+        res[:, 13]
+    return _apply_cluster_results(g, x.member_slot, found, pm,
+                                  pc.reshape(n, 3, 3), mprior, deact, kc)
+
+
+def apply_core(g: GraphState, x: CoreInputs, core: tuple,
+               kc: int = KC) -> GraphState:
+    """One device's tail of `cluster`: the core's narrow per-row results
+    (found, pm, pc, mprior, deact) scattered back to node space and
+    applied (_apply_cluster_results)."""
+    n = g.num_padded_nodes
+    found, pm, pc, mprior, deact = (_expand(v, x.ids, n) for v in core)
     return _apply_cluster_results(g, x.member_slot, found, pm,
                                   pc.reshape(n, 3, 3), mprior, deact, kc)
 

@@ -156,6 +156,20 @@ def _proximity_merge(g: GraphState, cfg: PipelineConfig, mat: torch.Tensor):
     return coords, valid & ~kill, can_process, n_pairs
 
 
+def _compact_rows(coords, valid_m):
+    """Each row's valid slots moved to the front, radius order kept ->
+    (coords (C,H,4), valid (C,H), n_hits (C,))."""
+    c, h = valid_m.shape
+    n_hits = torch.sum(valid_m, dim=1)
+    rank = torch.cumsum(valid_m, dim=1) - 1
+    dest = torch.where(valid_m, rank, h)
+    coords_c = torch.zeros((c, h + 1, 4), dtype=coords.dtype,
+                           device=coords.device)
+    coords_c.scatter_(1, dest[..., None].expand(-1, -1, 4), coords)
+    valid_c = torch.arange(h, device=coords.device)[None, :] < n_hits[:, None]
+    return coords_c[:, :h], valid_c, n_hits
+
+
 def _rotate_tracks(coords, valid, n_hits, cfg: PipelineConfig):
     """Innermost-edge rotation (extract.py:177-211); hits are
     radius-descending, so the innermost sit at n-1, n-2, n-3."""
@@ -329,19 +343,9 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
     big_enough = size >= cfg.min_track_hits
 
     coords, valid_m, can_process, n_pairs = _proximity_merge(g, cfg, mat)
-    n_hits = torch.sum(valid_m, dim=1)
+    coords_c, valid_c, n_hits = _compact_rows(coords, valid_m)
     # one hit per layer post-merge AND enough distinct layers (ref :427-429)
     processed = big_enough & can_process & (n_hits >= cfg.min_track_hits)
-
-    # compact each row: valid slots to the front, radius order kept
-    c, h_ = valid_m.shape
-    rank = torch.cumsum(valid_m, dim=1) - 1
-    dest = torch.where(valid_m, rank, h_)
-    coords_c = torch.zeros((c, h_ + 1, 4), dtype=coords.dtype,
-                           device=coords.device)
-    coords_c.scatter_(1, dest[..., None].expand(-1, -1, 4), coords)
-    coords_c = coords_c[:, :h_]
-    valid_c = torch.arange(h_, device=coords.device)[None, :] < n_hits[:, None]
 
     coords_r = _rotate_tracks(coords_c, valid_c, n_hits, cfg)
     pval_xy, pval_zr = _kf_fit(coords_r, n_hits, cfg)

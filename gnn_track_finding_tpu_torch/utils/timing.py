@@ -10,7 +10,13 @@ execution_stages.txt / execution_times.txt (run_gnn_trackml_mod.sh:44-46,
     device finishes, so device time lands in the right stage), and writes
     the reference's two text artifacts;
   * `trace` wraps a block in torch.profiler (the CPU, and the CUDA device
-    when there is one) and writes a Chrome trace.
+    when there is one) and writes a Chrome trace;
+  * the card's clocks, which every CUDA-device measurement of the port
+    (chip_smoke.py, profile_stages.py) takes: `sync_time` (a host clock
+    ending in torch.cuda.synchronize()), `call_ms` (CUDA events over
+    back-to-back calls), `device_ms` / `replay_ms` (CUDA-graph replays
+    between CUDA events) and `busy_share` (torch.profiler's device
+    events).  They need a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -84,3 +90,150 @@ def trace(log_dir: Optional[str] = None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ------------------------------------------------------ the card's clocks
+
+def sync_time(fn):
+    """fn() on a host clock that starts and ends in torch.cuda.synchronize()
+    -> (fn's output, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Time per call of fn over reps back-to-back calls (CUDA events): the
+    device time, or the host's cost per call where that is larger."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def replay_ms(graph: "torch.cuda.CUDAGraph", before=None,
+              repeats: int = 3) -> float:
+    """The best of `repeats` replays of a captured graph, each between two
+    CUDA events on the current stream (ms); before(), when given, is
+    enqueued ahead of each start event (an L2 flush, or a spin that keeps
+    the device busy while the host submits the replay)."""
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Device time per call of fn: reps calls captured into one CUDA graph
+    (the kernel wrappers launch on the current stream, which the capture
+    takes over), the graph replayed between CUDA events, so the host's cost
+    per call does not enter; the best of three replays.  fn must not
+    synchronise with the host.
+
+    Without flush the repeats find their inputs in the L2 cache wherever
+    they fit (warm).  With flush, a device buffer larger than the L2, each
+    captured call follows a write of the whole buffer, so fn reads its
+    inputs from HBM (cold); a graph of the writes alone is timed the same
+    way and its time taken off."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def graph_ms(body):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
+        graph.replay()
+        torch.cuda.synchronize()
+        return replay_ms(graph)
+
+    if flush is None:
+        return graph_ms(fn) / reps
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    return (graph_ms(cold) - graph_ms(flush.zero_)) / reps
+
+
+class Busy(NamedTuple):
+    """What torch.profiler saw of one call on the device."""
+    share: Optional[float]      # the union of the device's intervals over
+                                # the call's wall; None: no device activity
+    wall: float                 # s
+    events: int                 # device events (kernels, copies, memsets)
+    ms_by_name: list            # [(name, ms)], longest first
+    count_by_name: Dict[str, int]
+
+
+# spin kernels (torch.cuda._sleep) run just inside each end of a profiled
+# window, 32 of ~30 us each: after minutes of device work in one process
+# the profiler was seen to miss the first or last 13 device events of a
+# window (a drift of its device clock against the host's), and the
+# markers take that loss; their events are dropped from the result
+MARKERS, MARKER_CYCLES = 32, 62_500
+
+
+def _markers() -> None:
+    for _ in range(MARKERS):
+        torch.cuda._sleep(MARKER_CYCLES)
+    torch.cuda.synchronize()
+
+
+def busy_share(fn) -> Busy:
+    """fn() once under torch.profiler (the CPU and the CUDA device): the
+    device's busy share of the call's wall, its events, and their time and
+    count by name.  Kernels inside a CUDA-graph replay are seen one by
+    one.  The device events are read from the profiler's raw (kineto)
+    results, filtered and named as torch's EventList names them, without
+    building its per-event Python objects (a replay holds ~39,000); fn
+    must launch no spin kernel (MARKERS)."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import _filter_name, _rewrite_name
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _markers()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _markers()
+    device = [(_rewrite_name(name=e.name(), with_wildcard=True),
+               e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not _filter_name(e.name()) and not e.is_hidden_event()
+              and "spin_kernel" not in e.name()]
+    if not device:
+        return Busy(None, wall, 0, [], {})
+    by_name, count = {}, {}
+    for name, a, b in device:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) * 1e-6
+        count[name] = count.get(name, 0) + 1
+    busy, end = 0, float("-inf")
+    for a, b in sorted((a, b) for _, a, b in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return Busy(busy * 1e-9 / wall, wall, len(device),
+                sorted(by_name.items(), key=lambda kv: -kv[1]), count)

@@ -65,6 +65,59 @@ KERNELS = {
 
 MODULES = sorted(p.relative_to(JAX).as_posix() for p in JAX.rglob("*.py"))
 
+# tools/*.py that import the JAX package -> the port's counterpart (a path
+# under the repository root) or why it has none: "to port: ..." (ROADMAP's
+# queue of tools) or the reason it stays JAX-only
+PROFILER = "gnn_track_finding_tpu_torch/profile_stages.py"
+TOOLS = {
+    "bench_cca.py": "the dead CCA variants; the port runs fixed-round "
+                    "FastSV only",
+    "bench_cold_stream.py": "to port: cold streams of path-distinct event "
+                            "copies through the prefetcher, clean and "
+                            "bug_compat",
+    "bench_pileup.py": "gnn_track_finding_tpu_torch/bench.py",
+    "bench_prefetch.py": "to port: serial against prefetched streams, "
+                         "run_pipeline_fast against run_pipeline, the depth "
+                         "and worker knobs",
+    "capture_trace.py": PROFILER,
+    "census_full_schedule.py": "to port: the sharded schedule's event-scale "
+                               "bit-match and every iteration's collective "
+                               "census in one report",
+    "clean_mode_study.py": "to port: clean against bug_compat physics on "
+                           "the committed events",
+    "jax_runner_constants.py": "computes the JAX package's answers that "
+                               "chip_smoke.py carries as constants (the "
+                               "card's machine has no JAX)",
+    "lut_trackml_study.py": "to port: the KL LUT calibrated on TrackML "
+                            "rows, thresholds and labels",
+    "multiprocess_schedule.py": "to port: the schedule over two processes "
+                                "as a tool (its checks ride in "
+                                "tests/test_torch_parallel.py's rank "
+                                "worlds and chip_smoke phase 9)",
+    "profile_cca_ops.py": PROFILER,
+    "profile_cca_variants.py": "the dead CCA variants",
+    "profile_cluster_backends.py": "TPU lowering study: XLA against the "
+                                   "Pallas clustering backend",
+    "profile_edge_shard.py": "reads XLA's compiled HLO; the port counts "
+                             "its collectives at run time (ops/collect.py)",
+    "profile_extract_parts.py": PROFILER,
+    "profile_extrap_parts.py": PROFILER,
+    "profile_hot_parts.py": PROFILER,
+    "profile_layout.py": "TPU lowering study: (E, 3, 3) tiles against lane "
+                         "vectors",
+    "profile_lookup_forms.py": "TPU lowering study: two-index lookups",
+    "profile_pallas_tiles.py": "TPU lowering study: the Pallas kernel's "
+                               "lane tiles",
+    "profile_reweight_parts.py": PROFILER,
+    "profile_stages.py": PROFILER,
+    "pvalue_gaps.py": "compares the port with the JAX package on the CPU, "
+                      "as the tests do",
+    "roofline.py": PROFILER,
+    "sweep_efficiency.py": "to port: the efficiency sweep over the "
+                           "reference's CLI parameters",
+    "validate_vs_reference.py": "tools/validate_port_vs_reference.py",
+}
+
 
 def _statements(body):
     """Top-level statements, through if / try blocks."""
@@ -150,3 +203,33 @@ def test_kernels_are_ported():
 def test_not_ported_keys_name_jax_modules():
     assert {key.split("::")[0] for key in NOT_PORTED} <= set(MODULES)
     assert not set(NOT_PORTED) & set(KERNELS)
+
+
+def _imports_jax_package(path: Path) -> bool:
+    for n in ast.walk(_tree(path)):
+        names = ([a.name for a in n.names] if isinstance(n, ast.Import)
+                 else [n.module or ""] if isinstance(n, ast.ImportFrom)
+                 else [])
+        if any(m.split(".")[0] == "gnn_track_finding_tpu" for m in names):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("tool", sorted(
+    p.name for p in (ROOT / "tools").glob("*.py")))
+def test_tool_is_mapped(tool):
+    """A tool that imports the JAX package is in TOOLS, with a counterpart
+    that exists or a reason; no other tool is."""
+    if not _imports_jax_package(ROOT / "tools" / tool):
+        assert tool not in TOOLS, f"{tool} imports no JAX: drop it"
+        return
+    assert tool in TOOLS, f"tools/{tool} is not in TOOLS"
+    target = TOOLS[tool]
+    if target.endswith(".py"):
+        assert (ROOT / target).is_file(), target
+    else:
+        assert len(target.split()) >= 3, f"{tool}: give a reason"
+
+
+def test_tools_keys_name_tools():
+    assert set(TOOLS) <= {p.name for p in (ROOT / "tools").glob("*.py")}

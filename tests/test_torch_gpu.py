@@ -9,8 +9,9 @@ same run on the CPU), and the edge-partitioned schedule on the card (2
 gloo ranks on one card, 1 NCCL rank, the clustering kernel on routed
 owner rows, the NCCL rank's schedule captured as one CUDA graph and
 replayed by run_sharded and run_batched), and the bench's gate, captured
-message-passing loop and schedule timing on volume 7, and B events of one
-pad bucket as one captured program (parallel/mesh.stack_events).
+message-passing loop and schedule timing on volume 7, B events of one
+pad bucket as one captured program (parallel/mesh.stack_events), and the
+stage and part profiler on volume 7 (profile_stages.profile).
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -635,3 +636,25 @@ def test_bench_on_the_card(cuda):
     assert full.accepted == 3 * sum(gate["accepted"])
     assert full.counts == [1055, 110, 2] and full.seconds > 0
     pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+def test_profile_stages_on_the_card(cuda):
+    """profile_stages.profile on volume 7 at float64: every row captured
+    bitwise its eager output, with device times and launches; 2
+    gmr_cluster and 3 distinct_counts launches over the leaf rows, as in
+    the whole replay; the stage rows' kernel time within 25% of the
+    replay's; the reference's counts; FastSV within R_CAP rounds."""
+    from gnn_track_finding_tpu_torch import profile_stages
+    from gnn_track_finding_tpu_torch.graph import cca
+    prof = profile_stages.profile(_volume7(cuda, torch.float64), CFG)
+    assert all(r.bitwise for r in prof.rows)
+    assert all(r.device_ms > 0 and r.warm_ms > 0 and r.launches > 0
+               for r in prof.rows)
+    whole = prof.whole()
+    assert prof.leaf_kernels() == whole.kernels == {"gmr_cluster": 2,
+                                                    "distinct_counts": 3}
+    assert 0.75 <= prof.stage_sum_ms("kernel_ms") / whole.kernel_ms <= 1.25
+    assert prof.accepted == [1055, 110, 2]
+    assert all(r <= cca.R_CAP for r in prof.rounds)
+    assert prof.launch_node_ms > 0
