@@ -740,8 +740,8 @@ def sharded_phase(card, cuda, graph):
           f"per-event wall, best of {len(walls['captured'])} in turns: "
           f"captured {best['captured']:.4f} s, eager {best['eager']:.4f} s "
           f"(captured {[round(w, 4) for w in walls['captured']]}, eager "
-          f"{[round(w, 4) for w in walls['eager']]}); capture "
-          f"{cap['capture_s']:.3f} s, end of capture + instantiate "
+          f"{[round(w, 4) for w in walls['eager']]}); record "
+          f"{cap['record_s']:.3f} s, instantiate "
           f"{cap['instantiate_s']:.3f} s; graph pool "
           f"{cap['pool_bytes'] / 2**30:.3f} GiB; kernel launches per replay "
           f"{cap['launches']}; census of one run {census} bytes in "
@@ -769,7 +769,7 @@ def sharded_phase(card, cuda, graph):
     sharded_record = {
         "accepted": res["acc_count"], "fastsv_rounds": res["cca_rounds"],
         "path": cap["path"], "collectives": len(cap["census"]),
-        "census_bytes": census, "capture_s": cap["capture_s"],
+        "census_bytes": census, "record_s": cap["record_s"],
         "instantiate_s": cap["instantiate_s"],
         "pool_gib": cap["pool_bytes"] / 2**30,
         "launches_per_replay": cap["launches"], "walls_s": walls,
@@ -1077,24 +1077,27 @@ def captured_phase(card, cuda, graph, counts):
         eager = pipeline.run_pipeline_eager(g, cfg)
         bad = bitwise_diff(out, eager) + bitwise_diff(replayed, eager)
         per_it = counts(out, cfg)
-        rec = {"accepted": per_it, "capture_s": prog.capture_seconds,
-               "instantiate_s": prog.instantiate_seconds,
-               "first_call_s": t_first, "pool_gib": prog.pool_bytes / 2**30,
-               "launches_per_replay": prog.launches,
+        rec = {"accepted": per_it, "record_s": prog.capture.record_s,
+               "instantiate_s": prog.capture.instantiate_s,
+               "first_call_s": t_first,
+               "pool_gib": prog.capture.pool_bytes / 2**30,
+               "launches_per_replay": prog.kernel_launches,
                "launches_first_call": first, "fastsv_rounds": out.cca_rounds}
         record["programs"][label] = rec
         print(f"{label}, captured: accepted {per_it}"
               + (f" (expected {want})" if want else "")
               + f", FastSV rounds {out.cca_rounds}; first call {t_first:.3f} s "
-              f"(eager warm-up, capture {prog.capture_seconds:.3f} s, end of "
-              f"capture + instantiate {prog.instantiate_seconds:.3f} s); "
+              f"(eager warm-up {prog.capture.warmup_s:.3f} s, record "
+              f"{prog.capture.record_s:.3f} s, instantiate "
+              f"{prog.capture.instantiate_s:.3f} s, "
+              f"{prog.capture.graph_nodes} graph nodes); "
               f"graph pool {rec['pool_gib']:.3f} GiB; kernel launches in the "
               f"first call {first} (warm-up + capture), per replay "
-              f"{prog.launches}; captured vs eager, first call and a replay, "
+              f"{prog.kernel_launches}; captured vs eager, first call and a replay, "
               f"bitwise: {not bad} {bad}")
         check(all(v > 0 for v in first.values()), f"{label}: a kernel was not "
               "launched in the captured run")
-        check(all(v > 0 for v in prog.launches.values()),
+        check(all(v > 0 for v in prog.kernel_launches.values()),
               f"{label}: a kernel is not in the captured graph")
         check(not bad, f"{label}: captured result differs from the eager one "
               f"in {bad}")
@@ -1275,7 +1278,7 @@ def bench_phase(card, cuda):
         eager = pipeline.extrapolation_stage(eager, bench.CFG)
     bad = state_diff(looped.final, eager)
     record["loop"] = {"launches": launches,
-                      "launches_per_replay": stage.launches,
+                      "launches_per_replay": stage.kernel_launches,
                       "checksum": looped.checksum,
                       "iteration_s": looped.seconds}
     print(f"captured message-passing loop, {bench.N_REP} replays, full event "
@@ -1283,10 +1286,10 @@ def bench_phase(card, cuda):
           f"{int(eager.active.sum())}), {looped.seconds * 1e3:.4f} ms per "
           f"iteration; bitwise the eager loop: {not bad} {bad}; kernel "
           f"launches (warm-up + capture) {launches}, per replay "
-          f"{stage.launches}")
+          f"{stage.kernel_launches}")
     check(not bad, f"the captured loop differs from the eager one in {bad}")
     check(looped.checksum == int(eager.active.sum()), "loop checksum")
-    check(launches["distinct_counts"] > 0 and stage.launches[
+    check(launches["distinct_counts"] > 0 and stage.kernel_launches[
         "distinct_counts"] > 0, "distinct_counts is not in the captured loop")
     del stage
     pipeline.clear_programs()
@@ -1354,13 +1357,13 @@ def batch_phase(card, cuda):
           f"accepted {per_copy}, FastSV rounds "
           f"{[o.cca_rounds for o in replayed]}; kernel launches in the first "
           f"call {first_launches} (warm-up + capture), per replay "
-          f"{prog.launches}; each event bitwise its own single-event replay "
+          f"{prog.kernel_launches}; each event bitwise its own single-event replay "
           f"(first call and a replay) and the batched eager run: "
           f"{not any(bad.values())} {bad}")
     check(not any(bad.values()), f"batched results differ: {bad}")
     check(per_copy[0] == EXPECTED_F64[FULL], f"copy 0 counts {per_copy[0]}")
-    check(prog.launches == {"gmr_cluster": 2, "distinct_counts": 3},
-          f"launches per batched replay {prog.launches}")
+    check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3},
+          f"launches per batched replay {prog.kernel_launches}")
     torch.cuda.set_sync_debug_mode("error")
     try:
         pending = prog.launch_batch(mesh.stack_events(evs), evs)
@@ -1374,7 +1377,7 @@ def batch_phase(card, cuda):
           "synchronising call")
     record["float64_b4"] = {"accepted": per_copy,
                             "launches_first_call": first_launches,
-                            "launches_per_replay": prog.launches}
+                            "launches_per_replay": prog.kernel_launches}
 
     # the kernels against their plain versions on the batched inputs
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
@@ -1469,8 +1472,8 @@ def batch_phase(card, cuda):
             torch.cuda.reset_peak_memory_stats()
             sb = mesh.stack_events(graphs)
             prog = pipeline.captured_program(sb, ecfg)
-            check(prog.launches == {"gmr_cluster": 2, "distinct_counts": 3},
-                  f"{label} B={b}: launches per replay {prog.launches}")
+            check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3},
+                  f"{label} B={b}: launches per replay {prog.kernel_launches}")
             walls = {"batched": [], "sequential": []}
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -1494,23 +1497,23 @@ def batch_phase(card, cuda):
                    "walls_s": walls,
                    "replay_ms": replay_ms(prog),
                    "single_replay_ms": single_ms,
-                   "capture_s": prog.capture_seconds,
-                   "instantiate_s": prog.instantiate_seconds,
-                   "pool_gib": prog.pool_bytes / 2**30,
+                   "record_s": prog.capture.record_s,
+                   "instantiate_s": prog.capture.instantiate_s,
+                   "pool_gib": prog.capture.pool_bytes / 2**30,
                    "peak_allocated_gib":
                        torch.cuda.max_memory_allocated() / 2**30,
-                   "launches_per_replay": prog.launches,
+                   "launches_per_replay": prog.kernel_launches,
                    "accepted_per_event": got}
             timing[f"{label} {name} B={b}"] = rec
             print(f"{label} {name} B={b}: batched "
                   f"{rec['events_per_s_batched']:.3f} events/s against {rec['events_per_s_sequential']:.3f} for "
                   f"{b} single replays in turn (x{rec['speedup']:.3f}); one "
                   f"batched replay {rec['replay_ms']:.3f} ms on the device "
-                  f"(a single replay {single_ms:.3f} ms); capture "
-                  f"{rec['capture_s']:.3f} s, instantiate "
+                  f"(a single replay {single_ms:.3f} ms); record "
+                  f"{rec['record_s']:.3f} s, instantiate "
                   f"{rec['instantiate_s']:.3f} s, pool {rec['pool_gib']:.3f} "
                   f"GiB, peak allocated {rec['peak_allocated_gib']:.3f} GiB; "
-                  f"launches per replay {prog.launches}")
+                  f"launches per replay {prog.kernel_launches}")
             del sb, prog, pend
         del pool, single
         pipeline.clear_programs()
@@ -1634,8 +1637,8 @@ def batched_sharded_phase(card, cuda):
           f"{cap['paths']}, accepted {accepted}; fields differing bit for "
           f"bit from the eager body (first call, a replay, a replay under "
           f"the sync debug mode): {cap['differs']}; from each event's "
-          f"single-device batched replay: {cap['single_differs']}; capture "
-          f"{cap['capture_s']:.3f} s, end of capture + instantiate "
+          f"single-device batched replay: {cap['single_differs']}; record "
+          f"{cap['record_s']:.3f} s, instantiate "
           f"{cap['instantiate_s']:.3f} s, pool "
           f"{cap['pool_bytes'] / 2**30:.3f} GiB; one replay "
           f"{cap['replay_ms']:.3f} ms on the device; kernel launches per "
@@ -1663,7 +1666,7 @@ def batched_sharded_phase(card, cuda):
     check(cap["fallbacks"] == 0, "NCCL rank: a fallback")
     record["nccl_1_rank"] = {
         "accepted": accepted, "paths": cap["paths"],
-        "capture_s": cap["capture_s"], "instantiate_s": cap["instantiate_s"],
+        "record_s": cap["record_s"], "instantiate_s": cap["instantiate_s"],
         "pool_gib": cap["pool_bytes"] / 2**30, "replay_ms": cap["replay_ms"],
         "launches_per_replay": cap["launches"], "walls_s": walls,
         "events_per_s_stacked": 4 / best["captured"],

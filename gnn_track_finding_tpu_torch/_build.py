@@ -15,8 +15,11 @@ contraction); fast-math is never used.  The library is named by a hash of
 the sources and flags, built at first use into `build/` (git-ignored) and
 reused while the sources are unchanged.
 
-Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check()` turns a nonzero code into an exception.
+Each kernel's C entry point launches on the stream it is given and
+returns `cudaGetLastError()`; `check()` turns a nonzero code into an
+exception.  One entry point is host code alone: `graph_node_count`
+(csrc/graph_nodes.cu) counts a captured CUDA graph's nodes
+(`graph_nodes`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,11 @@ _SIGNATURES = {
     # int[3] out: blocks per SM, threads per block, smem bytes
     "distinct_counts_occupancy": [_P],
 }
+# C signatures of the entry points without a dtype
+_PLAIN_SIGNATURES = {
+    # cudaGraph_t, int64 out: its nodes
+    "graph_node_count": [_P, _P],
+}
 
 
 class KernelLibrary:
@@ -64,6 +72,10 @@ class KernelLibrary:
                 fn = getattr(self.lib, f"{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for name, argtypes in _PLAIN_SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
     def fn(self, name: str, dtype) -> ctypes._CFuncPtr:
         import torch
@@ -141,6 +153,16 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def graph_nodes(graph: int) -> int:
+    """The nodes of a captured CUDA graph (a cudaGraph_t, as
+    torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph() gives it)."""
+    out = ctypes.c_int64()
+    rc = library().lib.graph_node_count(graph, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"graph_node_count failed: cudaError {rc}")
+    return out.value
 
 
 def stream_handle(device) -> int:

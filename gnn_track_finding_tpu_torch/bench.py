@@ -156,7 +156,7 @@ class CapturedStage(pipeline.CapturedGraph):
     copying its output state into its own input tensors, so each replay
     advances the state by one iteration (the body of JAX's fori_loop).
     Built as CapturedSchedule is (the kernels first, then
-    CapturedGraph._capture); `launches` holds the kernel launches
+    CapturedGraph._capture); `kernel_launches` holds the kernel launches
     captured, which every replay makes."""
 
     def __init__(self, g: GraphState, cfg: PipelineConfig):
@@ -175,7 +175,7 @@ class CapturedStage(pipeline.CapturedGraph):
                 if new is not t:
                     t.copy_(new)
 
-        self._capture(body, g.device)
+        self._capture(body, g)
 
     def run(self, g: GraphState, n_rep: int) -> LoopResult:
         """g's state copied in, then n_rep replays on a host clock that
@@ -206,6 +206,17 @@ def message_passing_loop(g: GraphState, cfg: PipelineConfig,
         g = pipeline.extrapolation_stage(g, cfg)
     return LoopResult((time.perf_counter() - t0) / n_rep,
                       int(g.active.sum()), g)
+
+
+def program_record(prog: pipeline.CapturedGraph) -> dict:
+    """A captured program's record: what its capture cost (its Capture)
+    and the kernel launches each replay makes."""
+    cap = prog.capture
+    return {"warmup_s": cap.warmup_s, "record_s": cap.record_s,
+            "instantiate_s": cap.instantiate_s,
+            "pool_gib": cap.pool_bytes / 2**30,
+            "graph_nodes": cap.graph_nodes,
+            "launches_per_replay": prog.kernel_launches}
 
 
 # ----------------------------------------------------------- full schedule
@@ -493,11 +504,7 @@ def main(argv=None) -> int:
         print(json.dumps({"bench": rec}), file=sys.stderr, flush=True)
         return 0
     prog = pipeline.captured_program(g, CFG)
-    rec["schedule_program"] = {
-        "capture_s": prog.capture_seconds,
-        "instantiate_s": prog.instantiate_seconds,
-        "pool_gib": prog.pool_bytes / 2**30,
-        "launches_per_replay": prog.launches}
+    rec["schedule_program"] = program_record(prog)
     log(f"schedule program: {rec['schedule_program']}")
 
     per_event = sum(rec["gate"]["accepted"])
@@ -523,10 +530,7 @@ def main(argv=None) -> int:
 
     g1 = clustered(g, CFG)
     stage = CapturedStage(g1, CFG)
-    rec["stage_program"] = {"capture_s": stage.capture_seconds,
-                            "instantiate_s": stage.instantiate_seconds,
-                            "pool_gib": stage.pool_bytes / 2**30,
-                            "launches_per_replay": stage.launches}
+    rec["stage_program"] = program_record(stage)
     log(f"extrapolation stage program: {rec['stage_program']}")
     loops = [message_passing_loop(g1, CFG, N_REP, stage)
              for _ in range(REPEATS)]

@@ -34,12 +34,23 @@ R_CAP rounds, is rerun by the exact host driver, as JAX's falls back.
 union-find and, given the event's NetworkX-order tracker, replays the
 reference's extraction-time coordinate leak between an extraction and the
 next stage.
+
+The fast drivers' host work is marked by spans (utils/timing.span, which
+record only while torch.profiler runs), each named `pipeline.<part>`:
+`stack` (stack_events of a batch), `launch` (a replay enqueued: its
+children `copy_in`, `replay`, `clone_out`, `unstack`), `wait` (the
+readback's event) and `unpack` (unpack_packed; its child `fallback`, the
+exact rerun of an overflowed event).  Each dispatch takes a number from
+one counter: the `event` of its stack and launch spans; its wait and
+unpack spans carry (dispatch, row).  Every capture appends what it cost
+to `captures`.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import time
 from typing import Iterable, Iterator, List, NamedTuple, Tuple
 
@@ -57,6 +68,7 @@ from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel, extract,
                                              extrapolate, metadata, priors,
                                              seeding)
+from gnn_track_finding_tpu_torch.utils.timing import span
 
 
 def prepare(g: GraphState, cfg: PipelineConfig, group=None) -> GraphState:
@@ -352,41 +364,49 @@ class PipelineResult:
 # count over the cap, or FastSV unconverged after R_CAP rounds)
 fallbacks = 0
 
+# the fast drivers' dispatch numbers (the `event` of their spans)
+_DISPATCHES = itertools.count()
+
 
 def unpack_packed(g_in: GraphState, g_out: GraphState, buf: np.ndarray,
-                  cfg: PipelineConfig) -> PipelineResult:
+                  cfg: PipelineConfig, event=None) -> PipelineResult:
     """Candidates from full_pipeline_packed's buffer read back to the host
     (JAX pipeline.py:393-414).  An event that overflowed is rerun by
     run_pipeline with device FastSV (its adaptive loop and exact pulls),
-    on g_in's device, and counted in `fallbacks`."""
+    on g_in's device, and counted in `fallbacks`.  event: the (dispatch,
+    row) its spans serve."""
     global fallbacks
-    n_it = cfg.num_iterations
-    words = np.ascontiguousarray(buf).view(np.uint32)
-    rounds = words[-2 * n_it:-n_it].astype(np.int64)
-    overflow = words[-n_it:] != 0
-    counts, nodes, pvals, sentinel = unpack_results(words[:-2 * n_it], n_it)
-    if overflow.any():                  # a count over the cap, or FastSV
-        fallbacks += 1
-        return run_pipeline(g_in, cfg, host_cca=False)
-    candidates: List[Candidate] = []
-    for it in range(n_it):
-        for c in range(int(counts[it])):
-            nn = nodes[it, c]
-            nn = nn[nn != sentinel].astype(np.int64)
-            candidates.append(Candidate(nodes=nn, iteration=it + 1,
-                                        pval_xy=float(pvals[it, c, 0]),
-                                        pval_zr=float(pvals[it, c, 1])))
-    return PipelineResult(graph=g_out, candidates=candidates,
-                          per_iteration=[], cca_rounds=rounds.tolist())
+    with span("pipeline.unpack", event):
+        n_it = cfg.num_iterations
+        words = np.ascontiguousarray(buf).view(np.uint32)
+        rounds = words[-2 * n_it:-n_it].astype(np.int64)
+        overflow = words[-n_it:] != 0
+        counts, nodes, pvals, sentinel = unpack_results(words[:-2 * n_it],
+                                                        n_it)
+        if overflow.any():              # a count over the cap, or FastSV
+            fallbacks += 1
+            with span("pipeline.fallback", event):
+                return run_pipeline(g_in, cfg, host_cca=False)
+        candidates: List[Candidate] = []
+        for it in range(n_it):
+            for c in range(int(counts[it])):
+                nn = nodes[it, c]
+                nn = nn[nn != sentinel].astype(np.int64)
+                candidates.append(Candidate(nodes=nn, iteration=it + 1,
+                                            pval_xy=float(pvals[it, c, 0]),
+                                            pval_zr=float(pvals[it, c, 1])))
+        return PipelineResult(graph=g_out, candidates=candidates,
+                              per_iteration=[], cca_rounds=rounds.tolist())
 
 
 def run_pipeline_eager(g: GraphState, cfg: PipelineConfig) -> PipelineResult:
     """full_pipeline_packed run op by op on g's device, then the readback:
     the fast drivers' path on the CPU, and what the captured program is
     held to on the card."""
+    dispatch = next(_DISPATCHES)
     g_out, packed = full_pipeline_packed(g, cfg)
     g_out = g_out.replace(n_nodes=g.n_nodes, n_edges=g.n_edges)
-    return unpack_packed(g, g_out, packed.cpu().numpy(), cfg)
+    return unpack_packed(g, g_out, packed.cpu().numpy(), cfg, (dispatch, 0))
 
 
 # ---------------------------------------------------------------- capture
@@ -433,37 +453,68 @@ def kernel_launches() -> dict:
             "distinct_counts": distinct_kernel.distinct_counts.launches}
 
 
+class Capture(NamedTuple):
+    """What one capture (CapturedGraph._capture) cost."""
+    bucket: tuple           # the inputs' (padded N, padded E, K, B)
+    warmup_s: float         # the eager warm-up, to its end on the device
+    record_s: float         # torch.cuda.graph's block: the device
+                            # synchronised, the body recorded, the
+                            # capture ended
+    instantiate_s: float    # the graph's nodes counted, the graph
+                            # instantiated
+    pool_bytes: int         # the device memory the capture reserved
+    graph_nodes: int        # the graph's nodes, which every replay runs
+    kernel_launches: dict   # the hand-written kernels' launches among
+                            # them, by kernel
+
+
+# every capture of this process, in order (clear_programs keeps them)
+captures: List[Capture] = []
+
+
 class CapturedGraph:
     """A program captured once as one CUDA graph (`_capture`): `graph`,
-    `capture_seconds`, `instantiate_seconds` (end of capture +
-    instantiate), `pool_bytes` (the device memory the capture reserved)
-    and `launches` (the kernel launches captured, which every replay
-    makes; the kernels' counters count the warm-up and the capture, never
-    a replay)."""
+    `capture` (what the capture cost, a Capture) and `kernel_launches`
+    (the hand-written kernels' launches captured, by kernel, which every
+    replay makes: the kernels' own counters count the warm-up and the
+    capture, never a replay; the graph's nodes, every op of the body, are
+    `capture.graph_nodes`)."""
 
-    def _capture(self, body, dev):
+    def _capture(self, body, g: GraphState):
         """body() once on a side stream (the warm-up), then captured in
         capture_error_mode "thread_local", so another thread (a prefetch
-        thread) may go on using the device meanwhile -> body()'s output,
-        in the graph's memory.  The kernel library must be built before:
-        nvcc cannot run inside a capture."""
+        thread) may go on using the device meanwhile, then its nodes
+        counted and instantiated -> body()'s output, in the graph's
+        memory.  The kernel library must be built before: nvcc cannot run
+        inside a capture."""
+        dev = g.device
+        t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             body()
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
+        side.synchronize()
+        t1 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = kernel_launches()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            t0 = time.perf_counter()
             reserved = torch.cuda.memory_reserved(dev)
             out = body()
-            t1 = time.perf_counter()
-        self.capture_seconds = t1 - t0
-        self.instantiate_seconds = time.perf_counter() - t1
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = {k: v - before[k]
-                         for k, v in kernel_launches().items()}
+        t2 = time.perf_counter()
+        pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        nodes = _build.graph_nodes(self.graph.raw_cuda_graph())
+        self.graph.instantiate()
+        self.kernel_launches = {k: v - before[k]
+                                for k, v in kernel_launches().items()}
+        self.capture = Capture(
+            bucket=(g.num_padded_nodes, g.num_padded_edges, g.max_degree,
+                    g.batch),
+            warmup_s=t1 - t0, record_s=t2 - t1,
+            instantiate_s=time.perf_counter() - t2,
+            pool_bytes=pool_bytes, graph_nodes=nodes,
+            kernel_launches=self.kernel_launches)
+        captures.append(self.capture)
         return out
 
 
@@ -509,7 +560,7 @@ class CapturedSchedule(CapturedGraph):
             def body():
                 res = full_pipeline_results(static, cfg)
                 return res, packed_words(res)
-            self.results, self.packed = self._capture(body, g.device)
+            self.results, self.packed = self._capture(body, g)
             self.out = self.results.graph
         else:
             self.routing_inputs = {name: t.clone() for name, t in
@@ -518,7 +569,7 @@ class CapturedSchedule(CapturedGraph):
                                                  **self.routing_inputs)
             self.results = self._capture(
                 lambda: full_pipeline_results(static, cfg, group,
-                                              static_routing), g.device)
+                                              static_routing), g)
         self._free: List[_Slot] = []
 
     def launch(self, g: GraphState) -> "_Pending":
@@ -528,24 +579,32 @@ class CapturedSchedule(CapturedGraph):
         return self.launch_batch(g)[0]
 
     def launch_batch(self, g: GraphState,
-                     events: List[GraphState] | None = None
-                     ) -> List["_Pending"]:
+                     events: List[GraphState] | None = None,
+                     dispatch: int | None = None) -> List["_Pending"]:
         """Enqueue one replay of a stacked batch (or of one event) on the
         current stream; nothing waits.  -> one _Pending per event, all
         sharing the replay and the one readback.  `events`: the batch's
         own states, which an overflowed event reruns from (default:
-        unstacked from g)."""
-        for name, t in self.inputs.items():
-            t.copy_(getattr(g, name))
-        self.graph.replay()
-        g_out = _sized_like(clone_state(self.out), g)
-        slot = self._free.pop() if self._free else _Slot(self.packed)
-        slot.buf.copy_(self.packed, non_blocking=True)
-        slot.copied.record()
-        slot.unread = g.batch
-        return [_Pending(self, g_in, g_b, slot, b) for b, (g_in, g_b) in
-                enumerate(zip(events or unstack_events(g),
-                              unstack_events(g_out)))]
+        unstacked from g); `dispatch`: its number (default: the next)."""
+        if dispatch is None:
+            dispatch = next(_DISPATCHES)
+        with span("pipeline.launch", dispatch):
+            with span("pipeline.copy_in", dispatch):
+                for name, t in self.inputs.items():
+                    t.copy_(getattr(g, name))
+            with span("pipeline.replay", dispatch):
+                self.graph.replay()
+            with span("pipeline.clone_out", dispatch):
+                g_out = _sized_like(clone_state(self.out), g)
+                slot = self._free.pop() if self._free else _Slot(self.packed)
+                slot.buf.copy_(self.packed, non_blocking=True)
+                slot.copied.record()
+                slot.unread = g.batch
+            with span("pipeline.unstack", dispatch):
+                return [_Pending(self, g_in, g_b, slot, dispatch, b)
+                        for b, (g_in, g_b) in enumerate(zip(
+                            events or unstack_events(g),
+                            unstack_events(g_out)))]
 
     def replay(self, g: GraphState, routing=None) -> ScheduleResults:
         """One replay with every result cloned out, on the current
@@ -578,20 +637,23 @@ def clone_state(g: GraphState) -> GraphState:
 
 class _Pending:
     """An event in flight: its result once the readback has landed (row
-    `row` of the readback: the event's place in its batch)."""
+    `row` of the readback: the event's place in its batch; `dispatch`: the
+    replay's number)."""
 
     def __init__(self, program: CapturedSchedule, g_in, g_out, slot: _Slot,
-                 row: int):
+                 dispatch: int, row: int):
         self.program, self.g_in, self.g_out, self.slot = (program, g_in,
                                                           g_out, slot)
-        self.row = row
+        self.dispatch, self.row = dispatch, row
 
     def result(self) -> PipelineResult:
-        self.slot.copied.synchronize()
+        event = (self.dispatch, self.row)
+        with span("pipeline.wait", event):
+            self.slot.copied.synchronize()
         buf = self.slot.buf.numpy()
         out = unpack_packed(self.g_in, self.g_out,
                             buf.reshape(-1, buf.shape[-1])[self.row],
-                            self.program.cfg)
+                            self.program.cfg, event)
         self.slot.unread -= 1
         if not self.slot.unread:
             self.program._free.append(self.slot)
@@ -620,7 +682,8 @@ def captured_program(g: GraphState, cfg: PipelineConfig, group=None,
 
 
 def clear_programs() -> None:
-    """Drop every captured program (their memory returns to the allocator)."""
+    """Drop every captured program (their memory returns to the allocator;
+    `captures` keeps what each capture cost)."""
     _PROGRAMS.clear()
 
 
@@ -818,14 +881,17 @@ def run_pipeline_batched(graphs: List[GraphState], cfg: PipelineConfig,
     and is counted in `fallbacks`; the others keep the batched result.
     eager: run the program op by op on any device (what the captured
     replay is held to).  -> one PipelineResult per event, in order."""
-    g = stack_events(graphs)
+    dispatch = next(_DISPATCHES)
+    with span("pipeline.stack", dispatch):
+        g = stack_events(graphs)
     if g.device.type == "cuda" and not eager:
-        return [p.result() for p in
-                captured_program(g, cfg).launch_batch(g, list(graphs))]
+        return [p.result() for p in captured_program(g, cfg).launch_batch(
+            g, list(graphs), dispatch)]
     g_out, packed = full_pipeline_packed(g, cfg)
     buf = packed.reshape(g.batch, -1).cpu().numpy()
-    return [unpack_packed(g_in, g_b, row, cfg) for g_in, g_b, row in
-            zip(graphs, unstack_events(_sized_like(g_out, g)), buf)]
+    return [unpack_packed(g_in, g_b, row, cfg, (dispatch, b))
+            for b, (g_in, g_b, row) in enumerate(
+                zip(graphs, unstack_events(_sized_like(g_out, g)), buf))]
 
 
 def split_events(res: ScheduleResults) -> List[ScheduleResults]:
@@ -855,7 +921,8 @@ def run_schedule_batched(graphs: List[GraphState], cfg: PipelineConfig
     overflowed event rerun alone by the exact driver (path "exact",
     counted in `fallbacks`)."""
     global fallbacks
-    g = stack_events(graphs)
+    with span("pipeline.stack"):
+        g = stack_events(graphs)
     if g.device.type == "cuda":
         res = captured_program(g, cfg).replay(g)
     else:

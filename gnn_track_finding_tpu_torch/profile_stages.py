@@ -54,7 +54,8 @@ name and power limit, every row).  --batch B adds the same rows on B
 copies of the event rotated about the beam axis (bench.load_rotated) and
 stacked as their union (graph/state.stack_events), beside the single
 event; --trace DIR writes a Chrome trace of one replay of the event's
-captured schedule (utils/timing.trace).  It needs a CUDA device: without
+captured schedule and its readback, the driver's spans among its ranges
+(utils/timing.trace).  It needs a CUDA device: without
 one it exits 2 and prints no table.
 """
 
@@ -541,7 +542,8 @@ def main(argv=None) -> int:
                         help="also profile B rotated copies stacked as one "
                              "program")
     parser.add_argument("--trace", metavar="DIR",
-                        help="write a Chrome trace of one captured replay")
+                        help="write a Chrome trace of one captured replay "
+                             "and its readback")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("gnn_track_finding_tpu_torch.profile_stages needs a CUDA "
@@ -574,10 +576,10 @@ def main(argv=None) -> int:
         prog = pipeline.CapturedSchedule(g, cfg)
         torch.cuda.synchronize(dev)
         with timing.trace(args.trace):
-            prog.graph.replay()
-            torch.cuda.synchronize(dev)
+            prog.launch(g).result()
         rec["trace"] = f"{args.trace}/trace.json"
-        print(f"Chrome trace of one captured replay: {rec['trace']}")
+        print(f"Chrome trace of one captured replay and its readback: "
+              f"{rec['trace']}")
     print(json.dumps({"profile_stages": rec}), file=sys.stderr, flush=True)
     return 0
 

@@ -704,9 +704,10 @@ def _job_captured(ctx: RankContext, event: dict, reps: int = 5,
                        "sync_debug": bitwise_fields(eager, quiet)},
            "result": _schedule_numpy(first, group),
            "replay_ms": _replay_ms(prog),
-           "capture_s": prog.capture_seconds,
-           "instantiate_s": prog.instantiate_seconds,
-           "pool_bytes": prog.pool_bytes, "launches": prog.launches,
+           "record_s": prog.capture.record_s,
+           "instantiate_s": prog.capture.instantiate_s,
+           "pool_bytes": prog.capture.pool_bytes,
+           "launches": prog.kernel_launches,
            "census": census, "first_call_collectives": len(first_census),
            "bucket": r.bucket}
     runs = {"captured": lambda: edge_shard.run_sharded(

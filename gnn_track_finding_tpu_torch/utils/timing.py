@@ -11,6 +11,10 @@ execution_stages.txt / execution_times.txt (run_gnn_trackml_mod.sh:44-46,
     the reference's two text artifacts;
   * `trace` wraps a block in torch.profiler (the CPU, and the CUDA device
     when there is one) and writes a Chrome trace;
+  * `span` marks a part of the program's host work: while torch.profiler
+    runs it is a `record_function` range in the profiler's trace (on the
+    device timeline's clock) and a `Span` in an in-memory record
+    (`spans`, `span_totals`, `clear_spans`); otherwise it does nothing;
   * the card's clocks, which every CUDA-device measurement of the port
     (chip_smoke.py, profile_stages.py) takes: `sync_time` (a host clock
     ending in torch.cuda.synchronize()), `call_ms` (CUDA events over
@@ -22,11 +26,15 @@ execution_stages.txt / execution_times.txt (run_gnn_trackml_mod.sh:44-46,
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import tempfile
+import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, Hashable, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 def _devices(obj) -> set:
@@ -90,6 +98,114 @@ def trace(log_dir: Optional[str] = None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ------------------------------------------------------------------ spans
+
+class Span(NamedTuple):
+    """One span of host work, on the host's perf_counter_ns clock."""
+    name: str
+    start_ns: int
+    end_ns: Optional[int]       # None while the span is open
+    parent: Optional[int]       # index in spans() of the enclosing span
+                                # (of the same thread), None at the top
+    event: Hashable             # what the span serves (the driver's
+                                # dispatch, or (dispatch, row)), or None
+
+
+class SpanTotal(NamedTuple):
+    count: int                  # closed spans of the name
+    total_s: float              # their summed durations
+    self_s: float               # the same less what their children cover
+
+
+_SPANS: List[Span] = []
+_SPANS_LOCK = threading.Lock()
+_STACKS = threading.local()     # per thread: (record, index) of its
+                                # open spans
+
+
+# the span given while no profiler runs: it records nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _OpenSpan:
+    __slots__ = ("name", "event", "record", "index", "range")
+
+    def __init__(self, name: str, event: Hashable):
+        self.name, self.event = name, event
+
+    def __enter__(self):
+        stack = getattr(_STACKS, "stack", None)
+        if stack is None:
+            stack = _STACKS.stack = []
+        self.range = _profiler.record_function(self.name)
+        self.range.__enter__()
+        start = time.perf_counter_ns()
+        with _SPANS_LOCK:
+            self.record, self.index = _SPANS, len(_SPANS)
+            # a parent opened before clear_spans() is in the old record
+            parent = (stack[-1][1] if stack and stack[-1][0] is _SPANS
+                      else None)
+            _SPANS.append(Span(self.name, start, None, parent, self.event))
+        stack.append((self.record, self.index))
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _STACKS.stack.pop()
+        with _SPANS_LOCK:
+            self.record[self.index] = self.record[self.index]._replace(
+                end_ns=end)
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, event: Hashable = None):
+    """A context manager around a part of the host's work.  While
+    torch.profiler runs (torch's own flag, a plain bool) it enters
+    record_function(name), so the range lands in the profiler's trace, and
+    appends a Span to the record that spans() returns; otherwise it is a
+    shared no-op that records and allocates nothing.  Open one per call of
+    a part, never per item of a loop."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _OpenSpan(name, event)
+
+
+def spans() -> List[Span]:
+    """The spans recorded since the last clear_spans(), in the order they
+    were opened (a Span's `parent` indexes this list)."""
+    with _SPANS_LOCK:
+        return list(_SPANS)
+
+
+def clear_spans() -> None:
+    """Start a new record (spans still open close into the old one)."""
+    global _SPANS
+    with _SPANS_LOCK:
+        _SPANS = []
+
+
+def span_totals(name: str, records: Optional[List[Span]] = None
+                ) -> SpanTotal:
+    """Count, summed duration and self time of the closed spans named
+    `name` in `records` (default: spans()).  A span's self time is its
+    duration less its closed children's, which run one after another on
+    its thread."""
+    records = spans() if records is None else records
+    children: Dict[int, int] = {}
+    for r in records:
+        if r.parent is not None and r.end_ns is not None:
+            children[r.parent] = (children.get(r.parent, 0)
+                                  + r.end_ns - r.start_ns)
+    count = total = own = 0
+    for i, r in enumerate(records):
+        if r.name == name and r.end_ns is not None:
+            count += 1
+            total += r.end_ns - r.start_ns
+            own += r.end_ns - r.start_ns - children.get(i, 0)
+    return SpanTotal(count, total * 1e-9, own * 1e-9)
 
 
 # ------------------------------------------------------ the card's clocks
@@ -191,6 +307,12 @@ class Busy(NamedTuple):
 # window (a drift of its device clock against the host's), and the
 # markers take that loss; their events are dropped from the result
 MARKERS, MARKER_CYCLES = 32, 62_500
+MARKER_NAME = "spin_kernel"
+# the profiler's activity types (the `cat` of its exported trace) of
+# device work; others on the device's timeline, such as the range a
+# record_function covers there (gpu_user_annotation), or its own work
+# (overhead), are not
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _markers() -> None:
@@ -199,16 +321,51 @@ def _markers() -> None:
     torch.cuda.synchronize()
 
 
+def device_work(events) -> list:
+    """(name, start ns, end ns) of the device work among the profiler's
+    (activity type, name, start ns, end ns) events: kernels, copies and
+    memsets, the spin markers left out."""
+    return [(name, a, b) for kind, name, a, b in events
+            if kind in DEVICE_WORK and MARKER_NAME not in name]
+
+
+def _profiler_events(prof) -> list:
+    """(activity type, name, start ns, end ns) of the events of a finished
+    torch.profiler run: from its event objects where they carry the type
+    (activity_type, the exported trace's `cat`), else (torch 2.11) from
+    the trace it exports."""
+    events = prof.profiler.kineto_results.events()
+    if events and hasattr(events[0], "activity_type"):
+        return [(e.activity_type(), e.name(), e.start_ns(), e.end_ns())
+                for e in events]
+    return _trace_events(prof)
+
+
+def _trace_events(prof) -> list:
+    """(activity type, name, start ns, end ns) of every complete event of a
+    finished torch.profiler run, read from the trace it exports."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            raw = json.load(f)["traceEvents"]
+    out = []
+    for e in raw:
+        if e.get("ph") == "X":
+            a = round(float(e["ts"]) * 1e3)
+            out.append((e.get("cat", ""), e.get("name", ""), a,
+                        a + round(float(e.get("dur", 0)) * 1e3)))
+    return out
+
+
 def busy_share(fn) -> Busy:
     """fn() once under torch.profiler (the CPU and the CUDA device): the
     device's busy share of the call's wall, its events, and their time and
     count by name.  Kernels inside a CUDA-graph replay are seen one by
-    one.  The device events are read from the profiler's raw (kineto)
-    results, filtered and named as torch's EventList names them, without
-    building its per-event Python objects (a replay holds ~39,000); fn
-    must launch no spin kernel (MARKERS)."""
-    from torch.autograd import DeviceType
-    from torch.autograd.profiler import _filter_name, _rewrite_name
+    one.  Device events are the profiler's kernels, copies and memsets
+    (device_work), named as torch's EventList names them; fn must launch
+    no spin kernel (MARKERS)."""
+    from torch.autograd.profiler import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -218,12 +375,8 @@ def busy_share(fn) -> Busy:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _markers()
-    device = [(_rewrite_name(name=e.name(), with_wildcard=True),
-               e.start_ns(), e.end_ns())
-              for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA
-              and not _filter_name(e.name()) and not e.is_hidden_event()
-              and "spin_kernel" not in e.name()]
+    device = [(_rewrite_name(name=name, with_wildcard=True), a, b)
+              for name, a, b in device_work(_profiler_events(prof))]
     if not device:
         return Busy(None, wall, 0, [], {})
     by_name, count = {}, {}

@@ -37,6 +37,7 @@ from gnn_track_finding_tpu_torch.graph.build import build_event, build_graph_sta
 from gnn_track_finding_tpu_torch.models import pipeline, toymc
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel)
+from gnn_track_finding_tpu_torch.utils import timing
 
 VOL7_NPZ = (Path(__file__).resolve().parents[1] / ".event_cache"
             / "event_fafb3309e4598e9b.npz")
@@ -489,7 +490,11 @@ def test_captured_schedule_equals_eager(cuda, event, dtype):
     before = pipeline.fallbacks
     first = pipeline.run_pipeline_fast(g, cfg)
     prog = pipeline.captured_program(g, cfg)
-    assert all(n > 0 for n in prog.launches.values()), prog.launches
+    assert all(n > 0 for n in prog.kernel_launches.values()), \
+        prog.kernel_launches
+    # the graph was kept (keep_graph=True) to count its nodes
+    assert pipeline.captures[-1] is prog.capture
+    assert prog.capture.graph_nodes > 0
     n_launches = (cluster_kernel.cluster_core.launches,
                   distinct_kernel.distinct_counts.launches)
     replayed = pipeline.run_pipeline_fast(g, cfg)
@@ -548,7 +553,7 @@ def test_batched_replay_equals_eager_and_single_replays(cuda, event):
     singles = [pipeline.run_pipeline_fast(g, cfg) for g in graphs]
     first = pipeline.run_pipeline_batched(graphs, cfg)
     prog = pipeline.captured_program(mesh.stack_events(graphs), cfg)
-    assert prog.launches == {"gmr_cluster": 2, "distinct_counts": 3}
+    assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3}
     replayed = pipeline.run_pipeline_batched(graphs, cfg)
     eager = pipeline.run_pipeline_batched(graphs, cfg, eager=True)
     for b, single in enumerate(singles):
@@ -620,7 +625,7 @@ def test_bench_on_the_card(cuda):
     assert gate["gmr_cluster"]["flips"] == 0
     g1 = bench.clustered(g, CFG)
     stage = bench.CapturedStage(g1, CFG)
-    assert stage.launches == {"gmr_cluster": 0, "distinct_counts": 2}
+    assert stage.kernel_launches == {"gmr_cluster": 0, "distinct_counts": 2}
     looped = bench.message_passing_loop(g1, CFG, 5, stage)
     eager = g1
     for _ in range(5):
@@ -658,3 +663,66 @@ def test_profile_stages_on_the_card(cuda):
     assert prof.accepted == [1055, 110, 2]
     assert all(r <= cca.R_CAP for r in prof.rounds)
     assert prof.launch_node_ms > 0
+
+
+@pytest.mark.gpu
+def test_captured_stream_event_records_its_spans(cuda):
+    """A streamed event replayed under the profiler records the launch and
+    its four parts, then the readback wait and the unpack: one event id,
+    the dispatch's number (its row 0 for the wait and the unpack)."""
+    from torch.profiler import ProfilerActivity, profile
+    pipeline.clear_programs()
+    g, cfg = _toy_graph(cuda)
+    pipeline.run_pipeline_fast(g, cfg)          # the capture, unprofiled
+    timing.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = list(pipeline.stream_pipeline(iter([g]), cfg))
+    records = timing.spans()
+    timing.clear_spans()
+    assert not _bitwise_diff(out[0], pipeline.run_pipeline_eager(g, cfg))
+    assert [r.name for r in records] == [
+        "pipeline.launch", "pipeline.copy_in", "pipeline.replay",
+        "pipeline.clone_out", "pipeline.unstack", "pipeline.wait",
+        "pipeline.unpack"]
+    assert [r.parent for r in records] == [None, 0, 0, 0, 0, None, None]
+    dispatch = records[0].event
+    assert [r.event for r in records] == [dispatch] * 5 + [(dispatch, 0)] * 2
+    assert all(r.end_ns is not None for r in records)
+    pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+def test_graph_nodes_are_the_device_events_of_a_replay(cuda):
+    """The capture record's node count is what the profiler counts as
+    device work (kernels, copies, memsets) in one replay of the graph."""
+    pipeline.clear_programs()
+    g = _volume7(cuda, torch.float64)
+    prog = pipeline.captured_program(g, CFG)
+    busy = timing.busy_share(prog.graph.replay)
+    assert busy.events == prog.capture.graph_nodes > 0
+    assert prog.capture.bucket == (g.num_padded_nodes, g.num_padded_edges,
+                                   g.max_degree, 1)
+    pipeline.clear_programs()
+
+
+@pytest.mark.gpu
+def test_busy_share_counts_no_record_function_range(cuda):
+    """A record_function range around the profiled call lies on the
+    device's timeline too; busy_share counts the same device events with
+    it as without, and no event of its name."""
+    from torch.profiler import record_function
+    pipeline.clear_programs()
+    g, cfg = _toy_graph(cuda)
+    prog = pipeline.captured_program(g, cfg)
+
+    def wrapped():
+        with record_function("test.wrapped"):
+            prog.graph.replay()
+
+    plain = [timing.busy_share(prog.graph.replay) for _ in range(2)]
+    ranged = timing.busy_share(wrapped)
+    assert plain[0].events == plain[1].events == ranged.events > 0
+    assert not any("test.wrapped" in n for n in ranged.count_by_name)
+    kernel_ms = [sum(ms for _, ms in b.ms_by_name) for b in plain + [ranged]]
+    assert kernel_ms[2] <= 1.5 * max(kernel_ms[:2]), kernel_ms
+    pipeline.clear_programs()
