@@ -2,8 +2,8 @@
 
 Drives the port's production driver (`run_pipeline_fast`, `stream_pipeline`)
 on the committed TrackML event caches, captured as one CUDA graph per pad
-bucket, and checks both hand-written CUDA kernels against their plain
-PyTorch versions on the card:
+bucket, and checks the three hand-written CUDA kernels against their
+plain PyTorch versions on the card:
 
   1. device: a CUDA device is required; prints its name and power limit;
   2. build: compiles csrc/*.cu with nvcc (sm_90a), one process per source,
@@ -131,8 +131,9 @@ program run op by op), so their rows stay comparable with earlier runs:
      b * 2 pi / 4): each event's candidates, p-values, FastSV rounds and
      final state bitwise its own single-event replay and the batched
      eager run (first call and a replay), copy 0 at the reference's
-     counts, 2 gmr_cluster and 3 distinct_counts launches per replay, the
-     kernels launched in the first call (counters zeroed just before it),
+     counts, 2 gmr_cluster, 3 distinct_counts and 3 kf_fit launches per
+     replay, the kernels launched in the first call (counters zeroed just
+     before it),
      the stack, replay and readback under
      torch.cuda.set_sync_debug_mode("error"); at float32 each event's
      counts equal to its single replay's.  Both kernels against their
@@ -151,8 +152,8 @@ program run op by op), so their rows stay comparable with earlier runs:
      union, edge-partitioned as one program per rank), on rotated copies
      of the full event.  2 gloo ranks on cuda:0 run run_batched on a
      (1, 2) mesh over 2 copies: one program per rank (64 collectives, 2
-     gmr_cluster and 3 distinct_counts launches per rank, not per event),
-     path "eager", each event's candidates exact against its own
+     gmr_cluster, 3 distinct_counts and 3 kf_fit launches per rank, not
+     per event), path "eager", each event's candidates exact against its own
      single-device replay and its gathered state within the sharded bars
      (bitwise but grad_stats' variances, to 1e-12 of their second
      moment), copy 0 at the reference's counts, both kernels bitwise
@@ -177,11 +178,19 @@ program run op by op), so their rows stay comparable with earlier runs:
      launches, byte floor, launch floor and the rest of each stage, one
      FastSV round, and the whole schedule's replay.  It fails if a
      captured part differs from its eager output at float64, if the leaf
-     rows do not hold 2 gmr_cluster and 3 distinct_counts launches, if the
-     stage rows' kernel time sums to more than 25% off one replay's (their
+     rows do not hold 2 gmr_cluster, 3 distinct_counts and 3 kf_fit
+     launches, if the stage rows' kernel time sums to more than 25% off one replay's (their
      CUDA-event times are printed beside), or if FastSV needed more than
      R_CAP rounds.  Its summary is printed as one JSON line,
-     {"stage_profile": ...}.
+     {"stage_profile": ...};
+ 16. the track-fit kernel (csrc/kf_fit.cu) against its plain version
+     (the rotation and the torch fit loop) on the rows each of the three
+     extractions hands it, as eager runs record them: the full event
+     (14,400 rows) and volume 7 in 32 rotated copies stacked (98,368
+     rows).  Chi2 sums and p-values bitwise at float64 and float32 in
+     both bug_compat modes, one launch per call; the kernel's device
+     time (L2 flushed and warm), the plain loop's (captured) and the
+     bound from the bytes and operations those rows need.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -193,6 +202,7 @@ the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -233,6 +243,7 @@ FULL_TRAINING_ROWS = 1_956_687
 TRAINING_BLOCK, CPU_TRAINING_BLOCK = 2048, 256
 CLUSTER_SOURCE = "gnn_track_finding_tpu_torch/csrc/gmr_cluster.cu"
 DISTINCT_SOURCE = "gnn_track_finding_tpu_torch/csrc/distinct_counts.cu"
+FIT_SOURCE = "gnn_track_finding_tpu_torch/csrc/kf_fit.cu"
 CLUSTER_REPLACES = "gnn_track_finding_tpu/ops/pallas_cluster.py:118"
 DISTINCT_REPLACES = "gnn_track_finding_tpu/ops/pallas_distinct.py:30"
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s,
@@ -316,6 +327,109 @@ def distinct_bound(ok, x) -> dict:
     return bound(float(n_bytes), float(n_ops), x.dtype)
 
 
+# float operations of the fit kernel's pieces, as written in
+# csrc/kf_fit.cu (each +, -, *, /, negation, abs and math-library call
+# once): one hit rotated; a row's innermost edge and its two angles' sin
+# and cos; one step of both planes (the parabola and var_ms 40, the OU
+# transition 21, the xy update 264, the zr update 90, the two sums)
+FIT_HIT, FIT_ROW, FIT_STEP = 14, 19, 417
+
+
+def fit_bound(coords, n_hits) -> dict:
+    """What one fit needs, counted from the rows of the run.  Bytes: per
+    row with 2 or more hits its first n_hits slots (4 coordinates and the
+    valid flag each; the rest of the row is never read); per row its
+    n_hits and both chi2 sums.  Operations: per such row its innermost
+    edge and first hit, per step one step and one rotated hit."""
+    w = coords.element_size()
+    c = coords.shape[0]
+    n = torch.clamp(n_hits, max=coords.shape[1])
+    n = n[n >= 2].double()
+    n_bytes = (n.sum() * (4 * w + 1) + c * n_hits.element_size()
+               + 2 * c * w)
+    n_ops = n.numel() * (FIT_ROW + FIT_HIT) + (n - 1).sum() * (FIT_STEP
+                                                               + FIT_HIT)
+    return bound(float(n_bytes), float(n_ops), coords.dtype)
+
+
+def fit_phase(card, cuda, graph) -> dict:
+    """The track-fit kernel (csrc/kf_fit.cu) against its plain version
+    (extract._kf_chi2 of extract._rotate_tracks; extract.track_fit_plain
+    for the p-values) on the rows each of the three extractions hands it:
+    the full event and volume 7 in 32 rotated copies stacked, as their
+    eager schedules record them (testing.extraction_rows).  At float64
+    and float32, in both bug_compat modes: chi2 sums and p-values bitwise,
+    and one launch per call.  At the configured mode: the kernel's device
+    time (L2 flushed and warm), the plain loop's (captured, L2 flushed)
+    and the bound (fit_bound).  Returns the phase's record."""
+    from gnn_track_finding_tpu_torch import bench, testing
+    from gnn_track_finding_tpu_torch.ops import extract, fit_kernel
+    from gnn_track_finding_tpu_torch.parallel import mesh
+    print(f"card: {card}")
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    g, cfg = graph(FULL, torch.float64)
+    cfg7 = graph(VOL7, torch.float64)[1]
+    stack = mesh.stack_events([
+        bench.load_rotated(VOL7, cfg7, b, 32, device=cuda,
+                           dtype=torch.float64) for b in range(32)])
+    sets = {"full event": (testing.extraction_rows(g, cfg), cfg),
+            "volume 7 x 32": (testing.extraction_rows(stack, cfg7), cfg7)}
+    del g, stack
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
+    record = {"max_abs_err": 0.0, "calls": {}}
+    for label, (rows, cfg) in sets.items():
+        check(len(rows) == 3, f"{label}: {len(rows)} extractions recorded")
+        for it, (coords, valid, n_hits) in enumerate(rows, 1):
+            for dtype in (torch.float64, torch.float32):
+                name = str(dtype).split(".")[1]
+                cc = coords.to(dtype)
+                for bug in (True, False):
+                    c = dataclasses.replace(cfg, bug_compat=bug)
+                    before = fit_kernel.chi2_sums.launches
+                    got = (fit_kernel.chi2_sums(cc, valid, n_hits, c)
+                           + extract.track_fit(cc, valid, n_hits, c))
+                    check(fit_kernel.chi2_sums.launches == before + 2,
+                          f"{label} extraction {it}: kf_fit launches "
+                          f"{fit_kernel.chi2_sums.launches - before} for "
+                          "chi2_sums and track_fit, not 2")
+                    want = (extract._kf_chi2(extract._rotate_tracks(
+                        cc, valid, n_hits, c), n_hits, c)
+                        + extract.track_fit_plain(cc, valid, n_hits, c))
+                    differ = [k for k, a, b in zip(
+                        ("chi_xy", "chi_rz", "pval_xy", "pval_zr"), got,
+                        want) if not torch.equal(a.view(bits[dtype]),
+                                                 b.view(bits[dtype]))]
+                    err = max(float(torch.where(a.isnan() & b.isnan(), 0.0,
+                                                a - b).abs().max())
+                              for a, b in zip(got, want))
+                    record["max_abs_err"] = max(record["max_abs_err"], err)
+                    check(not differ, f"kf_fit differs from its plain "
+                          f"version: {label} extraction {it} {name} "
+                          f"bug_compat={bug}: {differ}, max |diff| {err}")
+                run = lambda: fit_kernel.chi2_sums(cc, valid, n_hits, cfg)
+                plain = lambda: extract._kf_chi2(extract._rotate_tracks(
+                    cc, valid, n_hits, cfg), n_hits, cfg)
+                rec = {"rows": coords.shape[0],
+                       "fitted_rows": int((n_hits >= 2).sum()),
+                       "ms": device_ms(run, flush=flush),
+                       "ms_warm_l2": device_ms(run),
+                       "plain_ms": device_ms(plain, reps=2, warmup=1,
+                                             flush=flush),
+                       **fit_bound(cc, n_hits)}
+                rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+                record["calls"][f"{label} extraction {it} {name}"] = rec
+                print(f"kf_fit, {label} extraction {it} {name}: "
+                      f"{rec['fitted_rows']} of {rec['rows']} rows fitted; "
+                      f"chi2 sums and p-values bitwise the plain version in "
+                      f"both bug_compat modes; kernel {rec['ms']:.4f} ms "
+                      f"(L2 flushed), {rec['ms_warm_l2']:.4f} ms (warm), "
+                      f"plain {rec['plain_ms']:.4f} ms (captured); bound "
+                      f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} "
+                      f"({rec['bytes']} bytes, {rec['ops']} operations), "
+                      f"share {rec['share_of_bound']:.4f}", flush=True)
+    return record
+
+
 def core_case(label, inputs, cfg, chi2_thr, check_found=True):
     """The kernel against the plain version with the bench's gate
     (bench.compare_cluster: bitwise at float64, the flag band at float32),
@@ -347,19 +461,16 @@ def calibration_phase(card, cuda, graph, counts, events):
     from gnn_track_finding_tpu_torch.graph import state as tstate
     from gnn_track_finding_tpu_torch.graph.build import build_event
     from gnn_track_finding_tpu_torch.models import pipeline, toymc
-    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
-                                                 distinct_kernel)
+    from gnn_track_finding_tpu_torch.ops import cluster_kernel, clustering
     cpu = torch.device("cpu")
     f64 = torch.float64
     print(f"card: {card}")
 
     def zero_launches():
-        cluster_kernel.cluster_core.launches = 0
-        distinct_kernel.distinct_counts.launches = 0
+        pipeline.reset_kernel_launches()
 
     def launches():
-        return {"gmr_cluster": cluster_kernel.cluster_core.launches,
-                "distinct_counts": distinct_kernel.distinct_counts.launches}
+        return pipeline.kernel_launches()
 
     def max_rel(a, b):
         nz = b != 0
@@ -758,7 +869,8 @@ def sharded_phase(card, cuda, graph):
     check(same_candidates(res, ref, 0.0)
           and not testing.states_differ(ref_graph, res["graph"], rtol=0.0),
           "captured NCCL rank differs from the single-device run")
-    check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3},
+    check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
+                              "kf_fit": 3},
           f"captured NCCL rank: launches per replay {cap['launches']}")
     check(cap["first_call_collectives"] == 2 * len(cap["census"]),
           "captured NCCL rank: the warm-up and capture issued "
@@ -811,7 +923,7 @@ def sharded_phase(card, cuda, graph):
                        "nccl_1_rank": runs["nccl"][0]["launches"][name],
                        "nccl_1_rank_captured_per_replay":
                            cap["launches"][name]}
-                for name in ("gmr_cluster", "distinct_counts")}
+                for name in ("gmr_cluster", "distinct_counts", "kf_fit")}
     shutil.rmtree(out_dir, ignore_errors=True)
     return owner, launches
 
@@ -833,7 +945,6 @@ def studies_phase(card, cuda, graph, events):
     from gnn_track_finding_tpu_torch.graph.build import build_event
     from gnn_track_finding_tpu_torch.graph.state import as_numpy
     from gnn_track_finding_tpu_torch.models import pipeline
-    from gnn_track_finding_tpu_torch.ops import cluster_kernel, distinct_kernel
     cpu = torch.device("cpu")
     f64 = torch.float64
     print(f"card: {card}")
@@ -842,12 +953,9 @@ def studies_phase(card, cuda, graph, events):
     def study(name, fn):
         """fn(device) on the card (its launches counted) and on CPU tensors;
         -> (card result, CPU result)."""
-        cluster_kernel.cluster_core.launches = 0
-        distinct_kernel.distinct_counts.launches = 0
+        pipeline.reset_kernel_launches()
         got, t_card = sync_time(lambda: fn(cuda))
-        launches[name] = {
-            "gmr_cluster": cluster_kernel.cluster_core.launches,
-            "distinct_counts": distinct_kernel.distinct_counts.launches}
+        launches[name] = pipeline.kernel_launches()
         ref, t_cpu = sync_time(lambda: fn(cpu))
         print(f"{name}: {t_card:.3f} s on the card, {t_cpu:.3f} s on CPU "
               f"tensors; kernel launches {launches[name]}")
@@ -1047,7 +1155,6 @@ def captured_phase(card, cuda, graph, counts):
     kernels' launches per replay among it)."""
     from gnn_track_finding_tpu_torch.data import prefetch
     from gnn_track_finding_tpu_torch.models import pipeline
-    from gnn_track_finding_tpu_torch.ops import cluster_kernel, distinct_kernel
     f64, f32 = torch.float64, torch.float32
     print(f"card: {card}")
     t_phase = time.perf_counter()
@@ -1056,8 +1163,7 @@ def captured_phase(card, cuda, graph, counts):
     fallbacks = pipeline.fallbacks
 
     def launches():
-        return {"gmr_cluster": cluster_kernel.cluster_core.launches,
-                "distinct_counts": distinct_kernel.distinct_counts.launches}
+        return pipeline.kernel_launches()
 
     record = {"programs": {}}
     cases = (("volume 7 float64", VOL7, f64, {}, EXPECTED_F64[VOL7]),
@@ -1067,8 +1173,7 @@ def captured_phase(card, cuda, graph, counts):
              ("full event float32", FULL, f32, {}, None))
     for label, path, dtype, changes, want in cases:
         g, cfg = graph(path, dtype, **changes)
-        cluster_kernel.cluster_core.launches = 0
-        distinct_kernel.distinct_counts.launches = 0
+        pipeline.reset_kernel_launches()
         out, t_first = sync_time(lambda: pipeline.run_pipeline_fast(g, cfg))
         first = launches()
         prog = pipeline.captured_program(g, cfg)
@@ -1222,7 +1327,6 @@ def bench_phase(card, cuda):
     run and in the loop among it)."""
     from gnn_track_finding_tpu_torch import bench
     from gnn_track_finding_tpu_torch.models import pipeline
-    from gnn_track_finding_tpu_torch.ops import cluster_kernel, distinct_kernel
     t_phase = time.perf_counter()
     pipeline.clear_programs()
     torch.cuda.empty_cache()
@@ -1268,8 +1372,7 @@ def bench_phase(card, cuda):
     g = bench.load_event(bench.FULL_EVENT, bench.CFG, device=cuda,
                          dtype=torch.float64)
     g1 = bench.clustered(g, bench.CFG)
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
     stage = bench.CapturedStage(g1, bench.CFG)
     looped = bench.message_passing_loop(g1, bench.CFG, bench.N_REP, stage)
     launches = pipeline.kernel_launches()
@@ -1337,8 +1440,7 @@ def batch_phase(card, cuda):
     evs = copies(FULL, 4, f64, turn=4)
     pipeline.run_pipeline_fast(evs[0], cfg)
     singles = [pipeline.run_pipeline_fast(g, cfg) for g in evs]
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
     first = pipeline.run_pipeline_batched(evs, cfg)
     first_launches = pipeline.kernel_launches()
     check(all(v > 0 for v in first_launches.values()),
@@ -1362,7 +1464,8 @@ def batch_phase(card, cuda):
           f"{not any(bad.values())} {bad}")
     check(not any(bad.values()), f"batched results differ: {bad}")
     check(per_copy[0] == EXPECTED_F64[FULL], f"copy 0 counts {per_copy[0]}")
-    check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3},
+    check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
+                                   "kf_fit": 3},
           f"launches per batched replay {prog.kernel_launches}")
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1472,7 +1575,8 @@ def batch_phase(card, cuda):
             torch.cuda.reset_peak_memory_stats()
             sb = mesh.stack_events(graphs)
             prog = pipeline.captured_program(sb, ecfg)
-            check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3},
+            check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
+                                           "kf_fit": 3},
                   f"{label} B={b}: launches per replay {prog.kernel_launches}")
             walls = {"batched": [], "sequential": []}
             for _ in range(3):
@@ -1592,7 +1696,8 @@ def batched_sharded_phase(card, cuda):
         check(paths == ["eager"], f"gloo rank {rank}: paths {paths}")
         check(len(program) == 64, f"gloo rank {rank}: {len(program)} "
               "collectives in the batch, not one program's 64")
-        check(o["launches"] == {"gmr_cluster": 2, "distinct_counts": 3},
+        check(o["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
+                                "kf_fit": 3},
               f"gloo rank {rank}: launches {o['launches']} (one program: "
               "2 and 3)")
         check(all(c["bitwise"] for c in o["kernel_checks"].values()),
@@ -1656,7 +1761,8 @@ def batched_sharded_phase(card, cuda):
     check(not any(cap["single_differs"]), "NCCL rank: an event differs from "
           f"its single-device batched replay: {cap['single_differs']}")
     check(accepted[0] == EXPECTED_F64[FULL], f"NCCL rank: copy 0 {accepted[0]}")
-    check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3},
+    check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
+                              "kf_fit": 3},
           f"NCCL rank: launches per replay {cap['launches']}")
     check(len(cap["census"]) == 64, f"NCCL rank: {len(cap['census'])} "
           "collectives in the stacked program")
@@ -1754,7 +1860,8 @@ def profile_phase(card, cuda):
         if dtype == f64:
             check(not not_bitwise, f"{label}: captured parts differ from "
                   f"their eager output: {not_bitwise}")
-        check(leaves == {"gmr_cluster": 2, "distinct_counts": 3}
+        check(leaves == {"gmr_cluster": 2, "distinct_counts": 3,
+                         "kf_fit": 3}
               == whole.kernels, f"{label}: kernel launches over the leaf "
               f"rows {leaves}, in the whole replay {whole.kernels}")
         # the kernels' own time: the gaps between graph nodes come and go
@@ -1812,8 +1919,8 @@ def main() -> int:
     from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                                  distinct_kernel, extract,
-                                                 extrapolate, metadata,
-                                                 priors)
+                                                 extrapolate, fit_kernel,
+                                                 metadata, priors)
     cuda = torch.device("cuda")
 
     phase("2. build")
@@ -1829,6 +1936,7 @@ def main() -> int:
         occupancy[f"gmr_cluster {name}"] = cluster_kernel.occupancy(
             dtype, clustering.KC)
         occupancy[f"distinct_counts {name}"] = distinct_kernel.occupancy(dtype)
+        occupancy[f"kf_fit {name}"] = fit_kernel.occupancy(dtype)
     for label, occ in occupancy.items():
         print(f"resident on one SM, {label}: {occ}")
     shutil.rmtree(native_loader.BUILD_DIR, ignore_errors=True)
@@ -1950,13 +2058,10 @@ def main() -> int:
     for path in (VOL7, FULL):
         g, cfg = graph(path, torch.float64)
         if path == FULL:
-            cluster_kernel.cluster_core.launches = 0
-            distinct_kernel.distinct_counts.launches = 0
+            pipeline.reset_kernel_launches()
         out, dt = sync_time(lambda: pipeline.run_pipeline_eager(g, cfg))
         if path == FULL:
-            launches = {"gmr_cluster": cluster_kernel.cluster_core.launches,
-                        "distinct_counts":
-                            distinct_kernel.distinct_counts.launches}
+            launches = pipeline.kernel_launches()
         per_it = counts(out, cfg)
         print(f"{path.name} float64: accepted {per_it} (reference "
               f"{EXPECTED_F64[path]}), FastSV rounds {out.cca_rounds}, "
@@ -1967,12 +2072,9 @@ def main() -> int:
     solo = out
 
     g, cfg = graph(VOL7, torch.float64, bug_compat=False)
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
     per_it = counts(pipeline.run_pipeline_eager(g, cfg), cfg)
-    clean_launches = {
-        "gmr_cluster": cluster_kernel.cluster_core.launches,
-        "distinct_counts": distinct_kernel.distinct_counts.launches}
+    clean_launches = pipeline.kernel_launches()
     print(f"{VOL7.name} clean mode (bug_compat=False) float64: accepted "
           f"{per_it} (JAX package {EXPECTED_CLEAN_F64}); kernel launches "
           f"{clean_launches}")
@@ -2161,13 +2263,10 @@ def main() -> int:
             return muts
 
         host.tracker.extraction_merges = timed_merges
-        cluster_kernel.cluster_core.launches = 0
-        distinct_kernel.distinct_counts.launches = 0
+        pipeline.reset_kernel_launches()
         out, t_host = sync_time(lambda: pipeline.run_pipeline(
             g, cfg, tracker=host.tracker))
-        path_launches = {
-            "gmr_cluster": cluster_kernel.cluster_core.launches,
-            "distinct_counts": distinct_kernel.distinct_counts.launches}
+        path_launches = pipeline.kernel_launches()
         per_it = counts(out, cfg)
         print(f"{path.name} run_pipeline(tracker) float64: accepted {per_it} "
               f"(reference {EXPECTED_F64[path]}), wall {t_host:.3f} s; "
@@ -2281,6 +2380,10 @@ def main() -> int:
     phase("15. stage and part profile (profile_stages.profile)")
     profile_phase(card, cuda)
 
+    phase("16. the track-fit kernel vs plain (the extractions' rows)")
+    fitted = fit_phase(card, cuda, graph)
+    fit_calls = fitted["calls"]
+
     def batched_sharded_entry(name):
         """A kernel's launches, agreement, times and bound in phase 14."""
         rounds = (("seed", "updated") if name == "gmr_cluster" else (None,))
@@ -2297,13 +2400,17 @@ def main() -> int:
                     "plain_ms", "bound_ms", "bound_by", "share_of_bound")
                     if key in rec} for k, rec in recs.items()}}
 
-    def event_batch(name):
-        """A kernel's launches, agreement, times and bound in phase 13."""
+    def event_batch_launches(name):
+        """A kernel's launches in phase 13."""
         return {"launches_first_call":
                     batched["float64_b4"]["launches_first_call"][name],
                 "launches_per_replay": {
                     k: v["launches_per_replay"][name]
-                    for k, v in batched["timing"].items()},
+                    for k, v in batched["timing"].items()}}
+
+    def event_batch(name):
+        """A kernel's launches, agreement, times and bound in phase 13."""
+        return {**event_batch_launches(name),
                 **{dtype: batched["kernels"][f"{name} {dtype}"]
                    for dtype in ("float64", "float32")}}
 
@@ -2370,6 +2477,31 @@ def main() -> int:
                        if k.startswith("distinct_counts")},
          "event_batch": event_batch("distinct_counts"),
          "batched_sharded": batched_sharded_entry("distinct_counts")},
+        {"name": "kf_fit", "route": "cuda", "source": FIT_SOURCE,
+         "replaces": None,
+         "launches": launches["kf_fit"],
+         "launches_captured": per_replay["kf_fit"],
+         "launches_run_pipeline": host_launches["kf_fit"],
+         "launches_calibrated": calibrated_launches["kf_fit"],
+         "max_abs_err": fitted["max_abs_err"],
+         **{k: fit_calls["full event extraction 1 float64"][k]
+            for k in ("ms", "ms_warm_l2", "plain_ms", "bound_ms",
+                      "bound_by")},
+         "library_ms": None,
+         "shape": "full event, extraction 1 (14,400 rows), float64",
+         "launches_sharded": sharded_launches["kf_fit"],
+         "launches_clean_volume7": clean_launches["kf_fit"],
+         "launches_studies": studies("kf_fit"),
+         "launches_bench": bench_launches("kf_fit"),
+         "calls": fit_calls,
+         "occupancy": {k: v for k, v in occupancy.items()
+                       if k.startswith("kf_fit")},
+         "launches_event_batch": event_batch_launches("kf_fit"),
+         "launches_batched_sharded": {
+             "gloo_2_ranks": [o["kf_fit"] for o in batched_sharded[
+                 "gloo_2_ranks"]["launches"]],
+             "nccl_per_replay": batched_sharded["nccl_1_rank"][
+                 "launches_per_replay"]["kf_fit"]}},
     ]
     print(f"\nchip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

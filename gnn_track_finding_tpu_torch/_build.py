@@ -5,15 +5,19 @@ together, and the objects are linked into ONE shared library with a plain
 C interface, loaded with ctypes (no PyTorch headers: the build takes
 seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -Xcompiler -fPIC -c csrc/<name>.cu           (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -fmad=false -c csrc/<name>.cu   (one per source)
     nvcc -shared -o build/gnn_kernels/libgnn_kernels_<hash>.so <objects>
 
 `-fmad=false` keeps each kernel on the same sequence of individually
 rounded operations as its plain PyTorch version (no fused multiply-add
-contraction); fast-math is never used.  The library is named by a hash of
-the sources and flags, built at first use into `build/` (git-ignored) and
-reused while the sources are unchanged.
+contraction); fast-math is never used.  csrc/kf_fit.cu builds with
+`-fmad=true` instead (`FMAD`), as torch's own kernels are built, so that
+the math library's float64 pow rounds as in torch's pow kernel; its
+arithmetic rounds op by op all the same, through the `_rn` intrinsics,
+which nvcc never contracts (see its note).  The library is named by a
+hash of the sources and flags, built at first use into `build/`
+(git-ignored) and reused while the sources are unchanged.
 
 Each kernel's C entry point launches on the stream it is given and
 returns `cudaGetLastError()`; `check()` turns a nonzero code into an
@@ -36,7 +40,9 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "gnn_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
+# nvcc's contraction flag by source; every other source -fmad=false
+FMAD = {"kf_fit.cu": "-fmad=true"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +57,10 @@ _SIGNATURES = {
     "gmr_cluster_occupancy": [_I, _P],
     # int[3] out: blocks per SM, threads per block, smem bytes
     "distinct_counts_occupancy": [_P],
+    # const FitArgs* (fit_kernel._Args), stream
+    "kf_fit": [_P, _P],
+    # int[3] out: blocks per SM, threads per block, smem bytes
+    "kf_fit_occupancy": [_P],
 }
 # C signatures of the entry points without a dtype
 _PLAIN_SIGNATURES = {
@@ -93,6 +103,10 @@ def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def source_flags(src: Path) -> list:
+    return NVCC_FLAGS + [FMAD.get(src.name, "-fmad=false")]
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
@@ -117,8 +131,9 @@ def build(verbose: bool = False) -> KernelLibrary:
     """Compile (if needed) and load the kernel library.  verbose adds
     ptxas resource usage (registers, shared memory, spills) to the log."""
     srcs = sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
     for src in srcs:
+        h.update(" ".join(source_flags(src)).encode())
         h.update(src.name.encode())
         h.update(src.read_bytes())
     path = BUILD_DIR / f"libgnn_kernels_{h.hexdigest()[:16]}.so"
@@ -130,7 +145,7 @@ def build(verbose: bool = False) -> KernelLibrary:
             objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
             ptxas = ["-Xptxas", "-v"] if verbose else []
             log = _run_all(
-                [[_nvcc()] + NVCC_FLAGS + ptxas
+                [[_nvcc()] + source_flags(src) + ptxas
                  + ["-c", "-o", str(obj), str(src)]
                  for src, obj in zip(srcs, objs)])
             lib = Path(tmp) / path.name

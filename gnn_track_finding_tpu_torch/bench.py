@@ -473,8 +473,7 @@ def main(argv=None) -> int:
         f"{args.dtype}")
     rec = {"card": card, "dtype": args.dtype}
     fallbacks = pipeline.fallbacks
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
 
     t0 = time.perf_counter()
     _build.library()

@@ -66,8 +66,8 @@ from gnn_track_finding_tpu_torch.graph.state import (
     GraphState, stack_events, tensor_fields, unstack_events)
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel, extract,
-                                             extrapolate, metadata, priors,
-                                             seeding)
+                                             extrapolate, fit_kernel,
+                                             metadata, priors, seeding)
 from gnn_track_finding_tpu_torch.utils.timing import span
 
 
@@ -448,9 +448,17 @@ class _Slot:
 
 
 def kernel_launches() -> dict:
-    """Both kernel wrappers' launch counters, by kernel."""
+    """The kernel wrappers' launch counters, by kernel."""
     return {"gmr_cluster": cluster_kernel.cluster_core.launches,
-            "distinct_counts": distinct_kernel.distinct_counts.launches}
+            "distinct_counts": distinct_kernel.distinct_counts.launches,
+            "kf_fit": fit_kernel.chi2_sums.launches}
+
+
+def reset_kernel_launches() -> None:
+    """Every kernel wrapper's launch counter set to 0."""
+    cluster_kernel.cluster_core.launches = 0
+    distinct_kernel.distinct_counts.launches = 0
+    fit_kernel.chi2_sums.launches = 0
 
 
 class Capture(NamedTuple):

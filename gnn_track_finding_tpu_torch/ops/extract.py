@@ -6,7 +6,9 @@ components over the active edges become rows of a (C, H) candidate matrix
 H x H analysis does the close-proximity same-layer merge; the innermost
 edge rotation keeps the reference's r/z typo under bug_compat; the
 two-plane Kalman fit runs as one H-1 step loop over all candidates; the
-chi2 survival function gives the p-values; the first ACC_PULL_CAP
+chi2 survival function gives the p-values (track_fit: on the card the
+rotation and the fit are one kernel, ops/fit_kernel.py, and
+track_fit_plain is its plain version); the first ACC_PULL_CAP
 accepted rows are compacted, in row order, into a static head.  Nothing
 here reads the device on the host (FastSV runs its fixed rounds, the
 accepted count stays a device scalar), so the whole extraction can be
@@ -26,7 +28,7 @@ import torch
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph import cca
 from gnn_track_finding_tpu_torch.graph.state import GraphState
-from gnn_track_finding_tpu_torch.ops import linalg
+from gnn_track_finding_tpu_torch.ops import fit_kernel, linalg
 from gnn_track_finding_tpu_torch.ops.priors import count_by
 
 # Rows of the accepted head per extraction (JAX pipeline.py:315-319).  The
@@ -199,8 +201,9 @@ def _rotate_tracks(coords, valid, n_hits, cfg: PipelineConfig):
     return torch.where(valid[..., None], out, 0.0)
 
 
-def _kf_fit(coords, n_hits, cfg: PipelineConfig):
-    """Batched two-plane Kalman track fit (extract.py:214-331) -> p-values."""
+def _kf_chi2(coords, n_hits, cfg: PipelineConfig):
+    """Batched two-plane Kalman track fit (extract.py:214-327) -> each
+    row's chi2 sums (chi_xy, chi_rz)."""
     c, h, _ = coords.shape
     dtype = coords.dtype
     dev = coords.device
@@ -310,10 +313,37 @@ def _kf_fit(coords, n_hits, cfg: PipelineConfig):
         chi_xy = chi_xy + torch.where(ok, c_xy, 0.0)
         chi_rz = chi_rz + torch.where(ok, c_rz, 0.0)
 
-    dof = torch.clamp(n_hits - 2, min=1).to(dtype)
-    pval_xy = torch.special.gammaincc(0.5 * dof, 0.5 * chi_xy)
-    pval_zr = torch.special.gammaincc(0.5 * dof, 0.5 * chi_rz)
-    return pval_xy, pval_zr
+    return chi_xy, chi_rz
+
+
+def _pvalues(chi_xy, chi_rz, n_hits):
+    """(pval_xy, pval_zr): the chi2 survival function of each plane's sum
+    at max(n_hits - 2, 1) degrees of freedom (extract.py:328-331)."""
+    dof = torch.clamp(n_hits - 2, min=1).to(chi_xy.dtype)
+    return (torch.special.gammaincc(0.5 * dof, 0.5 * chi_xy),
+            torch.special.gammaincc(0.5 * dof, 0.5 * chi_rz))
+
+
+def _kf_fit(coords, n_hits, cfg: PipelineConfig):
+    """Batched two-plane Kalman track fit (extract.py:214-331) -> p-values."""
+    return _pvalues(*_kf_chi2(coords, n_hits, cfg), n_hits)
+
+
+def track_fit_plain(coords, valid, n_hits, cfg: PipelineConfig):
+    """The rotation, then the batched fit loop: the kernel's plain version,
+    on raw compacted rows (_compact_rows) -> (pval_xy, pval_zr)."""
+    return _kf_fit(_rotate_tracks(coords, valid, n_hits, cfg), n_hits, cfg)
+
+
+def track_fit(coords, valid, n_hits, cfg: PipelineConfig):
+    """(pval_xy, pval_zr) of every compacted candidate row: the kf_fit
+    kernel's chi2 sums on the card, the plain version for CPU tensors."""
+    dev = coords.device
+    if dev.type == "cpu":
+        return track_fit_plain(coords, valid, n_hits, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"track_fit: unsupported device {dev}")
+    return _pvalues(*fit_kernel.chi2_sums(coords, valid, n_hits, cfg), n_hits)
 
 
 def extract_candidates(g: GraphState, cfg: PipelineConfig,
@@ -347,8 +377,7 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
     # one hit per layer post-merge AND enough distinct layers (ref :427-429)
     processed = big_enough & can_process & (n_hits >= cfg.min_track_hits)
 
-    coords_r = _rotate_tracks(coords_c, valid_c, n_hits, cfg)
-    pval_xy, pval_zr = _kf_fit(coords_r, n_hits, cfg)
+    pval_xy, pval_zr = track_fit(coords_c, valid_c, n_hits, cfg)
 
     accepted = (processed & (pval_xy >= cfg.track_acceptance_pval)
                 & (pval_zr >= cfg.track_acceptance_pval))

@@ -21,7 +21,7 @@ iteration 1's), and for every stage and part, in schedule order:
                replay out of the time;
   launches     the device events (kernels, copies, memsets) of one replay
                under torch.profiler (utils/timing.busy_share), and among
-               them the gmr_cluster and distinct_counts kernels;
+               them the gmr_cluster, distinct_counts and kf_fit kernels;
   kernel ms    the summed durations of those events: the replay's device
                time without the gaps between graph nodes, which in some
                replays add ~0.34 us a node and in others vanish (PERF.md);
@@ -93,7 +93,7 @@ L2_FLUSH_BYTES = 128 * 2**20
 # about 1 ms of a spin kernel, enqueued ahead of each timed replay
 SPIN_CYCLES = 2_000_000
 LAUNCH_NODES = 1000
-KERNELS = ("gmr_cluster", "distinct_counts")
+KERNELS = ("gmr_cluster", "distinct_counts", "kf_fit")
 EVENTS = {"full": bench.FULL_EVENT,
           "volume7": bench.FULL_EVENT.with_name("event_fafb3309e4598e9b.npz")}
 
@@ -373,11 +373,6 @@ def _fastsv(g: GraphState):
     return cca.connected_components_fixed(g, g.edge_mask & g.active)
 
 
-def _fit(coords, valid, n_hits, cfg):
-    return extract._kf_fit(extract._rotate_tracks(coords, valid, n_hits, cfg),
-                           n_hits, cfg)
-
-
 def _extraction_parts(p: Profiler, cfg: PipelineConfig, i: int, stage: str,
                       rounds: list):
     """extract_candidates (FastSV labels) + apply_extraction, part by part
@@ -401,8 +396,8 @@ def _extraction_parts(p: Profiler, cfg: PipelineConfig, i: int, stage: str,
             "_proximity_merge", extract._proximity_merge, g, cfg, mat)
         coords_c, valid_c, n_hits = extract._compact_rows(coords, valid_m)
         processed = (size >= min_hits) & can_process & (n_hits >= min_hits)
-        pval_xy, pval_zr = run("_rotate_tracks + _kf_fit", _fit, coords_c,
-                               valid_c, n_hits, cfg)
+        pval_xy, pval_zr = run("track_fit (kf_fit)", extract.track_fit,
+                               coords_c, valid_c, n_hits, cfg)
         accepted = (processed & (pval_xy >= cfg.track_acceptance_pval)
                     & (pval_zr >= cfg.track_acceptance_pval))
         acc_count, acc_nodes, acc_pvals = run(
@@ -503,19 +498,19 @@ def table(prof: Profile, label: str) -> List[str]:
     head = ("device ms" if prof.launch_node_ms is not None
             else "host ms (CPU tensors)")
     lines = [f"--- {label}: {head} (L2 flushed / warm), kernel ms, launches "
-             f"(gmr_cluster, distinct_counts), compulsory MB, byte floor "
+             f"({', '.join(KERNELS)}), compulsory MB, byte floor "
              f"ms, its share of the {head}, launch floor ms, rest ms",
              f"{'it':>2} {'level':6} {'name':44} {'ms':>9} {'warm':>9} "
-             f"{'kernel':>9} {'launch':>6} {'k':>4} {'MB':>9} {'floor':>7} "
+             f"{'kernel':>9} {'launch':>6} {'k':>5} {'MB':>9} {'floor':>7} "
              f"{'share':>7} {'lfloor':>8} {'rest':>8}"]
     for r in prof.rows:
         name = {"part": "  ", "round": "  ("}.get(r.level, "") + r.name
-        k = (f"{r.kernels.get('gmr_cluster', 0)},"
-             f"{r.kernels.get('distinct_counts', 0)}" if r.kernels else "-")
+        k = (",".join(str(r.kernels.get(kernel, 0)) for kernel in KERNELS)
+             if r.kernels else "-")
         lines.append(
             f"{r.iteration:>2} {r.level:6} {name[:44]:44} {_f(r.ms):>9} "
             f"{_f(r.warm_ms):>9} {_f(r.kernel_ms):>9} "
-            f"{_f(r.launches, 'd'):>6} {k:>4} {r.bytes / 1e6:>9.3f} "
+            f"{_f(r.launches, 'd'):>6} {k:>5} {r.bytes / 1e6:>9.3f} "
             f"{r.floor_ms:>7.4f} {_f(r.share, '.2%'):>7} "
             f"{_f(r.launch_floor_ms):>8} {_f(r.rest_ms):>8}")
     whole = prof.whole()

@@ -3,7 +3,8 @@ kernels' layouts, the host-read audit of the captured programs, and the
 rank workers of the edge-partitioned tests.
 
 Nothing in the pipeline imports this module.  The CPU tests
-(tests/test_torch_kernels.py, tests/test_torch_parallel.py), the card-only
+(tests/test_torch_kernels.py, tests/test_torch_fit_kernel.py,
+tests/test_torch_parallel.py), the card-only
 tests (tests/test_torch_gpu.py) and chip_smoke.py do: the inputs are made
 with numpy from a seed, so each hands the same rows to a kernel and to its
 plain version.  It lives in the package so that chip_smoke.py, run from a
@@ -143,6 +144,92 @@ def distinct_tables(seed: int, n: int, k: int, *, dtype=torch.float64,
     return (torch.from_numpy(ok).to(device),
             torch.from_numpy(x).to(device, dtype),
             torch.from_numpy(node_x).to(device, dtype))
+
+
+FIT_KINDS = ("short", "full", "repeated", "origin", "flat_z", "endcap",
+             "close_pair", "twin", "helix")
+
+
+def fit_rows(seed: int, rows: int, h: int = 32, *, dtype=torch.float64,
+             device="cpu"):
+    """(coords (rows, h, 4), valid (rows, h), n_hits (rows,)) in the layout
+    of extract._compact_rows: coords a view of (rows, h + 1, 4) raw
+    (x, y, z, r) hits, radius-descending, the first n_hits slots valid and
+    random values in the rest.  The row kinds, cycled: n_hits 0, 1, 2, 3
+    in turn; a row of all h slots; n_hits identical hits (denom == 0,
+    hyp == 0, dz == 0, the innermost pair within the separation
+    threshold); hits at the origin; a constant z at the endcap boundary or
+    in the barrel (dz == 0 beside dr != 0); endcap hits; an innermost pair
+    ~3 apart; one hit repeated in the middle of a track; tracks of 4..h
+    hits.  Tracks are circles through the origin in xy with a straight
+    line in (r, z), plus noise."""
+    rng = np.random.default_rng(seed)
+    coords = rng.normal(size=(rows, h + 1, 4)) * 500.0
+    n_hits = np.zeros(rows, dtype=np.int64)
+
+    def track(n, cot=None, z0=None):
+        rr = np.sort(rng.uniform(30.0, 1000.0, size=n))[::-1]
+        big_r = rng.uniform(600.0, 6000.0) * rng.choice([-1.0, 1.0])
+        phi = rng.uniform(-np.pi, np.pi) + np.arcsin(rr / (2.0 * big_r))
+        x = rr * np.cos(phi) + rng.normal(size=n) * 0.1
+        y = rr * np.sin(phi) + rng.normal(size=n) * 0.1
+        cot = rng.uniform(-1.5, 1.5) if cot is None else cot
+        z0 = rng.normal() * 50.0 if z0 is None else z0
+        return np.stack([x, y, z0 + rr * cot, np.sqrt(x * x + y * y)], 1)
+
+    for r in range(rows):
+        kind = FIT_KINDS[r % len(FIT_KINDS)]
+        n = int(rng.integers(4, h + 1))
+        if kind == "short":
+            n = min((r // len(FIT_KINDS)) % 4, h)
+            hits = track(n)
+        elif kind == "full":
+            n = h
+            hits = track(n)
+        elif kind == "repeated":
+            hits = np.repeat(track(1), n, axis=0)
+        elif kind == "origin":
+            hits = np.zeros((n, 4))
+        elif kind == "flat_z":
+            hits = track(n, cot=0.0, z0=550.0 if r % 2 else 120.0)
+        elif kind == "endcap":
+            hits = track(n, cot=rng.choice([-1.0, 1.0]) * rng.uniform(3, 8),
+                         z0=rng.choice([-1.0, 1.0]) * 600.0)
+        elif kind == "close_pair":
+            hits = track(n)
+            hits[n - 2] = hits[n - 1] + np.array([2.0, 1.0, 2.0, 0.0])
+        elif kind == "twin":
+            hits = track(n)
+            k = n // 2
+            hits[k + 1] = hits[k]
+        else:
+            hits = track(n)
+        coords[r, :n] = hits
+        n_hits[r] = n
+    valid = np.arange(h)[None, :] < n_hits[:, None]
+    full = torch.from_numpy(coords).to(device, dtype)
+    return (full[:, :h], torch.from_numpy(valid).to(device),
+            torch.from_numpy(n_hits).to(device))
+
+
+def extraction_rows(g, cfg) -> list:
+    """The compacted rows (coords, valid, n_hits) that each extraction of
+    an eager run of the schedule on g hands extract.track_fit, cloned: the
+    inputs of the track-fit kernel at the main path's shapes."""
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import extract
+    entry, seen = extract.track_fit, []
+
+    def recorded(coords, valid, n_hits, cfg):
+        seen.append((coords.clone(), valid.clone(), n_hits.clone()))
+        return entry(coords, valid, n_hits, cfg)
+
+    extract.track_fit = recorded
+    try:
+        pipeline.full_pipeline_results(g, cfg)
+    finally:
+        extract.track_fit = entry
+    return seen
 
 
 class HostReads(TorchDispatchMode):
@@ -443,16 +530,15 @@ def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
     schedule's bit for bit."""
     import torch.distributed as dist
 
-    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, collect,
-                                                 distinct_kernel)
+    from gnn_track_finding_tpu_torch.models import pipeline
+    from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
     g_full, cfg = _graph(ctx, event)
     g, r = _sharded(ctx, g_full, group)
     out = {"walls": []}
     for rep in range(reps):
-        cluster_kernel.cluster_core.launches = 0
-        distinct_kernel.distinct_counts.launches = 0
+        pipeline.reset_kernel_launches()
         dist.barrier(group)
         _sync(ctx)
         t0 = time.perf_counter()
@@ -463,9 +549,7 @@ def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
         _sync(ctx)
         out["walls"].append(time.perf_counter() - t0)
         if rep == 0:
-            out["launches"] = {
-                "gmr_cluster": cluster_kernel.cluster_core.launches,
-                "distinct_counts": distinct_kernel.distinct_counts.launches}
+            out["launches"] = pipeline.kernel_launches()
     out["census"] = records
     out["acc_count"], out["acc_nodes"], out["acc_pvals"] = acc
     out["cca_rounds"] = res.cca_rounds.tolist()
@@ -762,8 +846,7 @@ def _job_batched(ctx: RankContext, events: list, shape, reps: int = 0,
 
     from gnn_track_finding_tpu_torch.graph.state import stack_events
     from gnn_track_finding_tpu_torch.models import pipeline
-    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, collect,
-                                                 distinct_kernel)
+    from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     from gnn_track_finding_tpu_torch.parallel import mesh as pmesh
     graphs, cfgs = zip(*(_graph(ctx, e) for e in events))
@@ -777,8 +860,7 @@ def _job_batched(ctx: RankContext, events: list, shape, reps: int = 0,
     out = {"live_edges": [int(b.edge_mask.sum()) for b in blocks],
            "events": {}}
     pipeline.clear_programs()
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
     with collect.census() as out["census"]:

@@ -18,11 +18,13 @@ so they run on a machine that has only torch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: at float64 the kernels repeat their plain versions' order of
-operations with no contraction (nvcc -fmad=false), so flags, masks,
-counts and values are bitwise equal; at float32 the band of
-tests/test_pallas_cluster.py (under 6% flag flips, rtol 1e-5 where both
-merge)."""
+operations with no contraction (nvcc -fmad=false; the track fit's
+kernel through the _rn intrinsics), so flags, masks, counts and values
+are bitwise equal; the track fit's kernel at float32 too; the clustering
+kernel at float32 within the band of tests/test_pallas_cluster.py (under
+6% flag flips, rtol 1e-5 where both merge)."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -36,7 +38,8 @@ from gnn_track_finding_tpu_torch.data.event_cache import load_npz
 from gnn_track_finding_tpu_torch.graph.build import build_event, build_graph_state
 from gnn_track_finding_tpu_torch.models import pipeline, toymc
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
-                                             distinct_kernel)
+                                             distinct_kernel, extract,
+                                             fit_kernel)
 from gnn_track_finding_tpu_torch.utils import timing
 
 VOL7_NPZ = (Path(__file__).resolve().parents[1] / ".event_cache"
@@ -137,6 +140,7 @@ def test_kernel_occupancy(cuda, dtype):
         occ = cluster_kernel.occupancy(dtype, kc)
         assert occ["blocks_per_sm"] >= 1, occ
     assert distinct_kernel.occupancy(dtype)["blocks_per_sm"] >= 1
+    assert fit_kernel.occupancy(dtype)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.gpu
@@ -170,6 +174,130 @@ def test_distinct_kernel_matches_plain_on_edge_cases(cuda, k, dtype):
                                                  dtype)
     assert torch.equal(got, want)
     assert torch.equal(got[::6], torch.zeros_like(got[::6]))   # empty rows
+
+
+BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
+def _fit_differs(rows, cfg):
+    """The fit kernel against its plain version on the card, on the same
+    rows: the chi2 sums and the p-values bit for bit.  -> the outputs
+    that differ (NaN included: it must be the same NaN)."""
+    coords, valid, n_hits = rows
+    plain_chi = extract._kf_chi2(
+        extract._rotate_tracks(coords, valid, n_hits, cfg), n_hits, cfg)
+    before = fit_kernel.chi2_sums.launches
+    got_p = extract.track_fit(coords, valid, n_hits, cfg)
+    got_chi = fit_kernel.chi2_sums(coords, valid, n_hits, cfg)
+    assert fit_kernel.chi2_sums.launches == before + 2
+    want_p = extract.track_fit_plain(coords, valid, n_hits, cfg)
+    torch.cuda.synchronize()
+    names = ("chi_xy", "chi_rz", "pval_xy", "pval_zr")
+    bits = BITS[coords.dtype]
+    return [name for name, a, b in zip(names, got_chi + got_p,
+                                       plain_chi + want_p)
+            if not torch.equal(a.view(bits), b.view(bits))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [0, 1, 9, 1000])
+@pytest.mark.parametrize("bug_compat", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fit_kernel_matches_plain_on_synthetic_rows(cuda, dtype, bug_compat,
+                                                    rows):
+    """testing.fit_rows: n_hits 0 to 3 and H, denom == 0, hyp == 0,
+    dz == 0 (beside dr != 0 in the endcap), hits at the origin, endcap
+    hits, the innermost pair under the separation threshold, a repeated
+    hit mid-track; row counts that are no multiple of a block."""
+    cfg = PipelineConfig(bug_compat=bug_compat)
+    assert not _fit_differs(testing.fit_rows(rows, rows, dtype=dtype,
+                                             device=cuda), cfg)
+
+
+@pytest.fixture(scope="module")
+def extraction_rows():
+    """The compacted rows each of the three extractions hands the fit, at
+    float64, for the full event, volume 7 and volume 7 in 32 rotated
+    copies stacked (testing.extraction_rows: recorded at
+    extract.track_fit in an eager run of the schedule).  The stack holds
+    an endcap row whose dz == 0 steps make var_ms ~ |dr| / 1e-300: there
+    one ulp of float64 pow moved a chi2 sum by 1.4e-4 relative when the
+    kernel was built with -fmad=false (csrc/kf_fit.cu)."""
+    from gnn_track_finding_tpu_torch.parallel import mesh
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cuda = torch.device("cuda")
+    rows = {}
+    cfgs = {"full": PipelineConfig(min_volume=7, max_volume=14), "vol7": CFG,
+            "vol7x32": CFG}
+    for name, path in (("full", FULL_NPZ), ("vol7", VOL7_NPZ),
+                       ("vol7x32", None)):
+        if path is None:
+            g = mesh.stack_events([
+                bench.load_rotated(VOL7_NPZ, CFG, b, 32, device=cuda,
+                                   dtype=torch.float64) for b in range(32)])
+        else:
+            xyzr, vivl, tp, pairs, _, pre = load_npz(path)
+            g = build_graph_state(xyzr, vivl, tp, pairs, cfgs[name],
+                                  device=cuda, mirror=pre["mirror"],
+                                  component=pre["component"])
+        rows[name] = testing.extraction_rows(g, cfgs[name])
+    return rows, cfgs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bug_compat", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("event", ["full", "vol7", "vol7x32"])
+def test_fit_kernel_matches_plain_on_extraction_rows(extraction_rows, event,
+                                                     dtype, bug_compat):
+    """The rows of the event's three extractions (float32: the same rows
+    rounded), both bug_compat modes: the kernel bitwise its plain version
+    on the card, chi2 sums and p-values."""
+    rows, cfgs = extraction_rows
+    assert len(rows[event]) == 3
+    cfg = dataclasses.replace(cfgs[event], bug_compat=bug_compat)
+    for it, (coords, valid, n_hits) in enumerate(rows[event]):
+        assert int((n_hits >= cfg.min_track_hits).sum()) > 0
+        assert not _fit_differs((coords.to(dtype), valid, n_hits), cfg), it
+
+
+@pytest.mark.gpu
+def test_fit_kernel_refuses_what_it_cannot_take(cuda):
+    coords, valid, n_hits = testing.fit_rows(0, 8, device=cuda)
+    bad = {"coords": (coords.transpose(1, 2), valid, n_hits),
+           "dtype": (coords.half(), valid, n_hits),
+           "valid": (coords, valid[:, :-1], n_hits),
+           "n_hits": (coords, valid, n_hits.int()),
+           "device": (coords, valid, n_hits.cpu())}
+    for name, args in bad.items():
+        with pytest.raises(ValueError, match="kf_fit"):
+            fit_kernel.chi2_sums(*args, CFG)
+
+
+@pytest.mark.gpu
+def test_fit_kernel_takes_the_place_of_the_fit_nodes(cuda):
+    """The full event's captured program holds at most 3,000 graph nodes
+    (the torch fit alone was 36,099), and kf_fit launches 3 times a
+    replay in it and in the program of 32 volume-7 events stacked."""
+    from gnn_track_finding_tpu_torch.parallel import mesh
+    pipeline.clear_programs()
+    cfg = PipelineConfig(min_volume=7, max_volume=14)
+    xyzr, vivl, tp, pairs, _, pre = load_npz(FULL_NPZ)
+    g = build_graph_state(xyzr, vivl, tp, pairs, cfg, device=cuda,
+                          mirror=pre["mirror"], component=pre["component"])
+    prog = pipeline.captured_program(g, cfg)
+    assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
+                                    "kf_fit": 3}
+    assert prog.capture.graph_nodes <= 3000, prog.capture.graph_nodes
+    pipeline.clear_programs()
+    stack = mesh.stack_events([
+        bench.load_rotated(VOL7_NPZ, CFG, b, 32, device=cuda,
+                           dtype=torch.float64) for b in range(32)])
+    prog = pipeline.captured_program(stack, CFG)
+    assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
+                                    "kf_fit": 3}
+    pipeline.clear_programs()
 
 
 @pytest.mark.gpu
@@ -432,14 +560,15 @@ def test_nccl_rank_replays_a_stacked_sharded_batch(sharded_volume7):
     rank of one: one captured program, its first call, a replay and a
     replay under sync debug mode "error" bitwise the eager body's run,
     each event bitwise its single-device batched replay and at the
-    single-device counts, 2 / 3 kernel launches per replay, no
+    single-device counts, 2 / 3 / 3 kernel launches per replay, no
     fallback."""
     runs, ref = sharded_volume7
     cap = runs["nccl_stacked"]
     assert cap["path"] == "captured" and cap["paths"] == ["captured"] * 2
     assert cap["differs"] == {"first": [], "replay": [], "sync_debug": []}
     assert cap["single_differs"] == [[], []]
-    assert cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3}
+    assert cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
+                               "kf_fit": 3}
     for out in cap["result"]:
         assert out["acc_count"] == ref.acc_count.tolist() == [1055, 110, 2]
     assert cap["fallbacks"] == 0
@@ -553,7 +682,8 @@ def test_batched_replay_equals_eager_and_single_replays(cuda, event):
     singles = [pipeline.run_pipeline_fast(g, cfg) for g in graphs]
     first = pipeline.run_pipeline_batched(graphs, cfg)
     prog = pipeline.captured_program(mesh.stack_events(graphs), cfg)
-    assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3}
+    assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
+                                    "kf_fit": 3}
     replayed = pipeline.run_pipeline_batched(graphs, cfg)
     eager = pipeline.run_pipeline_batched(graphs, cfg, eager=True)
     for b, single in enumerate(singles):
@@ -625,7 +755,8 @@ def test_bench_on_the_card(cuda):
     assert gate["gmr_cluster"]["flips"] == 0
     g1 = bench.clustered(g, CFG)
     stage = bench.CapturedStage(g1, CFG)
-    assert stage.kernel_launches == {"gmr_cluster": 0, "distinct_counts": 2}
+    assert stage.kernel_launches == {"gmr_cluster": 0, "distinct_counts": 2,
+                                     "kf_fit": 0}
     looped = bench.message_passing_loop(g1, CFG, 5, stage)
     eager = g1
     for _ in range(5):
@@ -647,9 +778,10 @@ def test_bench_on_the_card(cuda):
 def test_profile_stages_on_the_card(cuda):
     """profile_stages.profile on volume 7 at float64: every row captured
     bitwise its eager output, with device times and launches; 2
-    gmr_cluster and 3 distinct_counts launches over the leaf rows, as in
-    the whole replay; the stage rows' kernel time within 25% of the
-    replay's; the reference's counts; FastSV within R_CAP rounds."""
+    gmr_cluster, 3 distinct_counts and 3 kf_fit launches over the leaf
+    rows, as in the whole replay; the stage rows' kernel time within 25%
+    of the replay's; the reference's counts; FastSV within R_CAP
+    rounds."""
     from gnn_track_finding_tpu_torch import profile_stages
     from gnn_track_finding_tpu_torch.graph import cca
     prof = profile_stages.profile(_volume7(cuda, torch.float64), CFG)
@@ -658,7 +790,8 @@ def test_profile_stages_on_the_card(cuda):
                for r in prof.rows)
     whole = prof.whole()
     assert prof.leaf_kernels() == whole.kernels == {"gmr_cluster": 2,
-                                                    "distinct_counts": 3}
+                                                    "distinct_counts": 3,
+                                                    "kf_fit": 3}
     assert 0.75 <= prof.stage_sum_ms("kernel_ms") / whole.kernel_ms <= 1.25
     assert prof.accepted == [1055, 110, 2]
     assert all(r <= cca.R_CAP for r in prof.rounds)

@@ -314,7 +314,8 @@ def test_schedule_sharded_equals_the_single_device_port(worlds, d):
     assert out["cca_rounds"] == ref.cca_rounds.tolist()
     bad = testing.states_differ(ref.graph.to_numpy(), out["graph"], rtol=0.0)
     assert not bad, bad
-    assert out["launches"] == {"gmr_cluster": 0, "distinct_counts": 0}
+    assert out["launches"] == {"gmr_cluster": 0, "distinct_counts": 0,
+                               "kf_fit": 0}
 
 
 def _pins(census, n, k, e):
@@ -401,7 +402,8 @@ def test_run_batched_on_an_edge_group_runs_one_program(worlds, d):
     assert sum(r["live_edges"][0] for r in ranks) == live
     for rank, r in enumerate(ranks):
         assert len(_program_collectives(r["census"])) == 64, rank
-        assert r["launches"] == {"gmr_cluster": 0, "distinct_counts": 0}
+        assert r["launches"] == {"gmr_cluster": 0, "distinct_counts": 0,
+                                 "kf_fit": 0}
         assert sorted(r["events"]) == list(range(len(BATCH)))
         for i, g in enumerate(singles):
             ref = pipeline.full_pipeline_results(g, CFG)

@@ -91,7 +91,7 @@ def test_parts_compose_to_the_schedule(events):
     assert leaves.count("metadata.remove_state_metadata") == 1
     assert "extract_candidates + apply_extraction" not in leaves
     text = "\n".join(profile_stages.table(prof, events))
-    assert "host ms (CPU tensors)" in text and "_kf_fit" in text
+    assert "host ms (CPU tensors)" in text and "track_fit (kf_fit)" in text
 
 
 def _to_jax(g):
@@ -180,7 +180,7 @@ def test_extraction_parts_equal_jax(staged):
         # hit's y) carry the inputs' rounding, |coords| up to ~1e3
         np.testing.assert_allclose(rotated.numpy(), np.asarray(ref_rot),
                                    rtol=1e-12, atol=1e-12, err_msg="rotated")
-        pvals = profile_stages._fit(coords, valid, n_hits, cfg)
+        pvals = extract.track_fit(coords, valid, n_hits, cfg)
         ref_p = jax_extract._kf_fit(ref_rot, args[1], args[2], jcfg)
     # the rows the extraction fits (extract_candidates' `processed`)
     fitted = ((size >= min_hits) & merged[2] & (n_hits >= min_hits)).numpy()
