@@ -1,10 +1,17 @@
 """The timed path: the program's drivers, fed by the traffic generator.
 
 Everything the benchmark calls of the program under test is here: its
-configuration type, its ingest (`graph.build.build_graph_state`, which
-puts each event's state on the device) and its two production drivers,
-`models.pipeline.stream_pipeline` (one event per dispatch) and
-`models.pipeline.run_pipeline_batched` (a stacked batch per dispatch).
+configuration type, its ingest (`data.event_cache.load_npz`, which reads
+an event's file, and `graph.build.build_graph_state`, which puts each
+event's state on the device), its prefetcher (`data.prefetch.prefetch`)
+and its two production drivers, `models.pipeline.stream_pipeline` (one
+event per dispatch) and `models.pipeline.run_pipeline_batched` (a
+stacked batch per dispatch).  The `stream` and `batch` drivers take the
+pool's states, built before the window (`build_states`); the `files`
+driver takes the pool's events as files (`EventFiles`) and builds each
+state inside the window: each event's ingest is a factory that
+`prefetch` runs on its worker thread ahead of `stream_pipeline`, at the
+program's defaults, as a user's job over stored events does.
 
 A driver object runs dispatches in turn, continuing the traffic's order,
 and returns one `Done` per event: the pool event it was, when the
@@ -18,13 +25,19 @@ showed one stall of 300-370 ms in each run from them.  The program's
 calls and the harness's own work run under `record_function` spans
 ("stream_pipeline" / "run_pipeline_batched", "harness"), which name the
 traced run's idle gaps where no torch op or CUDA call of the program
-covers them.
+covers them; each factory of the `files` driver runs under one more
+("ingest"), on the worker's thread.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
+import os
+import shutil
+import tempfile
 import time
+import weakref
 from typing import Callable, Dict, List, NamedTuple
 
 import numpy as np
@@ -39,6 +52,11 @@ class Done(NamedTuple):
     t_in: float          # host clock: the event handed to the driver
     t_out: float         # host clock: its result returned
     candidates: list     # the program's Candidate objects
+    # the files driver only (host clock): the seconds of the event's
+    # factory (its file read and its state built), and the seconds the
+    # stream's feed was blocked on the prefetcher for it
+    ingest_s: float | None = None
+    wait_s: float | None = None
 
 
 def program():
@@ -61,12 +79,57 @@ def build_states(pool: List[Dict[str, np.ndarray]], cfg: dict, device,
             for a in pool]
 
 
-class Driver:
-    """One cell's driver over its pool of states."""
+def pool_states(traffic: dict, pool: List[Dict[str, np.ndarray]], path,
+                cfg: dict, device, dtype):
+    """What the traffic's driver takes of the pool: its events' files for
+    the `files` driver (with the truth lists of the raw event file at
+    `path`), else their states built on the device."""
+    if traffic["driver"] == "files":
+        return EventFiles(pool, path, device, dtype)
+    return build_states(pool, cfg, device, dtype)
 
-    def __init__(self, traffic: dict, seed: int, states: list, cfg: dict,
+
+def _shape(g) -> tuple:
+    """A state's pad bucket: padded nodes, padded edges, max degree."""
+    return (g.num_padded_nodes, g.num_padded_edges, g.max_degree)
+
+
+class EventFiles:
+    """The pool's events as files, for the `files` driver: each one .npz
+    in the program's event-cache layout (data/event_cache.py: the pool
+    event's arrays, and the raw event's node ids and truth lists as they
+    are, which nothing of a run reads), in a directory made for the run
+    under the temporary directory, removed by `remove()` (at the latest
+    when the process exits); and the device and dtype the program builds
+    them on."""
+
+    def __init__(self, pool: List[Dict[str, np.ndarray]], path, device,
+                 dtype):
+        from gnn_track_finding_tpu_torch.data.event_cache import TRUTH_KEYS
+        with np.load(path) as z:
+            truth = {k: z[k] for k in ("node_ids",) + TRUTH_KEYS}
+        self.device, self.dtype = device, dtype
+        self.directory = tempfile.mkdtemp(prefix="benchmark_events_")
+        self.remove = weakref.finalize(self, shutil.rmtree, self.directory,
+                                       True)
+        self.paths = []
+        for k, arrays in enumerate(pool):
+            path = os.path.join(self.directory, f"event_{k}.npz")
+            with open(path, "wb") as f:
+                np.savez(f, **arrays, **truth)
+            self.paths.append(path)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+
+class Driver:
+    """One cell's driver over its pool of states (or, for `files`, of
+    EventFiles)."""
+
+    def __init__(self, traffic: dict, seed: int, states, cfg: dict,
                  clock: Callable[[], float] = time.perf_counter):
-        PipelineConfig, _, self.pipeline = program()
+        PipelineConfig, self.build, self.pipeline = program()
         self.cfg = PipelineConfig(**cfg["pipeline"])
         self.traffic = traffic
         self.kind = traffic["driver"]
@@ -74,14 +137,16 @@ class Driver:
         self.order = events.orders(traffic, seed)
         self.clock = clock
         self.handed = 0          # events handed over, over every call
+        # the pad bucket of the first state (files: of the first built)
+        self.shape = None if self.kind == "files" else _shape(states[0])
 
     def run(self, dispatches: int | None = None,
             until: float | None = None) -> List[Done]:
         """`dispatches` dispatches, or as many as start before `until` on
         the clock (at least one); every result waited for."""
-        if self.kind == "stream":
-            return self._stream(dispatches, until)
-        return self._batch(dispatches, until)
+        if self.kind == "batch":
+            return self._batch(dispatches, until)
+        return self._stream(dispatches, until)
 
     def _more(self, i: int, dispatches, until) -> bool:
         if dispatches is not None:
@@ -89,27 +154,71 @@ class Driver:
         return i == 0 or self.clock() < until
 
     def _stream(self, dispatches, until) -> List[Done]:
-        handed: List[tuple] = []
+        """One event per dispatch through stream_pipeline: the pool's
+        states, or (files) each event's state read and built on the
+        prefetcher's worker."""
+        # per event: [pool index, handed over, ingest seconds, wait seconds]
+        handed: List[list] = []
 
-        def feed():
+        def order():
             i = 0
             while self._more(i, dispatches, until):
-                k = next(self.order)[0]
-                handed.append((k, self.clock()))
+                rec = [next(self.order)[0], self.clock(), None, None]
+                handed.append(rec)
                 self.handed += 1
-                yield self.states[k]
+                yield rec
                 i += 1
 
+        feed = (self._ingested(order()) if self.kind == "files"
+                else (self.states[rec[0]] for rec in order()))
         out = []
         with record_function(SPANS[0]):
             for j, res in enumerate(self.pipeline.stream_pipeline(
-                    feed(), self.cfg, depth=int(self.traffic["depth"]))):
+                    feed, self.cfg, depth=int(self.traffic["depth"]))):
                 with record_function(SPANS[2]):
                     t = self.clock()
-                    k, t_in = handed[j]
-                    out.append(Done(k, t_in, t, res.candidates))
+                    k, t_in, ingest_s, wait_s = handed[j]
+                    out.append(Done(k, t_in, t, res.candidates, ingest_s,
+                                    wait_s))
                     gc.freeze()
         return out
+
+    def _ingested(self, recs):
+        """The states of the events of `recs` in order, each read from its
+        file and built by a factory that data/prefetch.prefetch runs on
+        its worker thread, as far ahead as the program's defaults go; a
+        record takes its factory's start (the event's hand-over) and
+        seconds, and the seconds the feed waited for it."""
+        from gnn_track_finding_tpu_torch.data import event_cache, prefetch
+        files = self.states
+
+        def ingest(rec: list):
+            """One event's factory: its file read and its state built by
+            the program's ingest (the calls of bench.load_event), with the
+            file's mirror and components."""
+            t0 = self.clock()
+            with record_function(SPANS[3]):
+                xyzr, vivl, tp, pairs, _, pre = event_cache.load_npz(
+                    files.paths[rec[0]])
+                g = self.build(xyzr, vivl, tp, pairs, self.cfg,
+                               device=files.device, dtype=files.dtype,
+                               mirror=pre["mirror"],
+                               component=pre["component"])
+            rec[1], rec[2] = t0, self.clock() - t0
+            if self.shape is None:
+                self.shape = _shape(g)
+            return rec, g
+
+        ready = prefetch.prefetch(functools.partial(ingest, rec)
+                                  for rec in recs)
+        while True:
+            t = self.clock()
+            item = next(ready, None)
+            if item is None:
+                return
+            rec, g = item
+            rec[3] = self.clock() - t
+            yield g
 
     def _batch(self, dispatches, until) -> List[Done]:
         out = []
@@ -130,8 +239,11 @@ class Driver:
         return out
 
     def free(self) -> None:
-        """Drop the states and the captured programs; the collector takes
-        back what the dispatches froze."""
+        """Drop the states (the files driver's files removed) and the
+        captured programs; the collector takes back what the dispatches
+        froze."""
+        if self.kind == "files":
+            self.states.remove()
         self.states = []
         self.pipeline.clear_programs()
         gc.unfreeze()

@@ -15,7 +15,10 @@ driver named by the mix takes them:
 
   * `stream`: one event per dispatch, round-robin through the pool;
   * `batch`: `batch` events per dispatch, the pool's events in an order
-    the seed shuffles anew for every dispatch.
+    the seed shuffles anew for every dispatch;
+  * `files`: as `stream`, each event read from a file of its own (the
+    program's event-cache layout, written by the harness before the
+    window), so that the program's ingest runs inside the window.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-DRIVERS = ("stream", "batch")
+DRIVERS = ("stream", "batch", "files")
 
 
 def draws(traffic: dict, seed: int, n: int):
@@ -39,7 +42,7 @@ def draws(traffic: dict, seed: int, n: int):
 def orders(traffic: dict, seed: int) -> Iterator[List[int]]:
     """The pool indices of each dispatch, endlessly."""
     pool = int(traffic["pool"])
-    if traffic["driver"] == "stream":
+    if traffic["driver"] in ("stream", "files"):
         i = 0
         while True:
             yield [i % pool]

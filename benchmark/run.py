@@ -10,9 +10,10 @@ benchmark/metrics/<name>.py.  A run:
   1. set-up (`setup_s`, from the interpreter's first line of this module):
      torch and the CUDA context, the event file checked against its
      sha256, the pool of distinct events drawn from the seed and built on
-     the device by the program's ingest, and the traffic's warm-up
-     dispatches through the cell's driver (the kernel library loads or
-     builds; the cell's one program is captured);
+     the device by the program's ingest (for the `files` driver: written
+     as files, each built inside the window instead), and the traffic's
+     warm-up dispatches through the cell's driver (the kernel library
+     loads or builds; the cell's one program is captured);
   2. the window: dispatches through the driver for --seconds, every
      result waited for (the end-to-end metrics);
   3. with --trace 1, a traced sub-window of the traffic's
@@ -91,17 +92,16 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, *, seed: int,
     from benchmark.reference import schedule as reference
 
     dtype = getattr(torch, cfg["dtype"])
-    raw = events.load(spec.event_file(cfg, root))
-    pool = events.pool_arrays(raw, traffic, seed)
-    states = drivers.build_states(pool, cfg, device, dtype)
+    path = spec.event_file(cfg, root)
+    pool = events.pool_arrays(events.load(path), traffic, seed)
     bucket = cfg["pad_bucket"]
-    got = (states[0].num_padded_nodes, states[0].num_padded_edges,
-           states[0].max_degree)
-    if got != (bucket["nodes"], bucket["edges"], bucket["max_degree"]):
-        raise spec.SpecError(f"pad bucket {got}, the configuration states "
-                             f"{bucket}")
+    states = drivers.pool_states(traffic, pool, path, cfg, device, dtype)
     driver = drivers.Driver(traffic, seed, states, cfg)
     driver.run(dispatches=int(traffic["warmup_dispatches"]))
+    if driver.shape != (bucket["nodes"], bucket["edges"],
+                        bucket["max_degree"]):
+        raise spec.SpecError(f"pad bucket {driver.shape}, the configuration "
+                             f"states {bucket}")
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
         else (lambda: None)
     sync()

@@ -6,9 +6,10 @@ the timed path broken underneath, and sees `correct` come out false;
 the unbroken run comes out true.  The faults: a dispatch that hands back
 the previous event's answer (its state unchanged), an answer altered
 where it is produced (a node dropped from a candidate; a p-value moved),
-half of a batch left out, and half of a batch answered with the other
-half's results.  One chip runs each cell, so no exchange between chips
-can be left out.
+half of a batch left out, half of a batch answered with the other half's
+results, and (files driver) an ingest that hands back the first state it
+built for every later file.  One chip runs each cell, so no exchange
+between chips can be left out.
 
     python -m pytest benchmark/tests/test_bench_faults.py -q -p no:cacheprovider
 """
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from benchmark import run, spec
+from gnn_track_finding_tpu_torch.graph import build
 from gnn_track_finding_tpu_torch.models import pipeline
 
 CFG = spec.config("trackml_v7_f64")
@@ -28,6 +30,10 @@ STREAM = {"driver": "stream", "pool": 2, "depth": 1, "warmup_dispatches": 1,
           "trace_dispatches": 1}
 BATCH = {"driver": "batch", "pool": 2, "batch": 2, "warmup_dispatches": 1,
          "trace_dispatches": 1}
+FILES = {"driver": "files", "pool": 2, "depth": 1, "warmup_dispatches": 1,
+         "trace_dispatches": 1}
+# the module of each function a fault replaces, where it is not pipeline
+OWNER = {"build_graph_state": build}
 
 
 def _stale(stream):
@@ -55,6 +61,18 @@ def _altered(unpack, how):
     return broken
 
 
+def _first_state(ingest):
+    """Every state the ingest builds after its first is that one."""
+    first = []
+
+    def broken(*args, **kw):
+        g = ingest(*args, **kw)
+        if not first:
+            first.append(g)
+        return first[0]
+    return broken
+
+
 def _half(batched, how):
     def broken(graphs, cfg, eager=False):
         res = batched(graphs, cfg, eager)
@@ -75,6 +93,11 @@ FAULTS = {
                                    lambda f: _half(f, "dropped"))),
     "half_batch_repeated": (BATCH, ("run_pipeline_batched",
                                     lambda f: _half(f, "repeated"))),
+    "none_files": (FILES, None),
+    "files_state_unchanged": (FILES, ("stream_pipeline", _stale)),
+    "files_node_dropped": (FILES, ("unpack_packed",
+                                   lambda f: _altered(f, "node"))),
+    "files_ingest_stale": (FILES, ("build_graph_state", _first_state)),
 }
 
 
@@ -83,7 +106,8 @@ def test_fault_is_not_correct(monkeypatch, fault):
     traffic, patch = FAULTS[fault]
     if patch is not None:
         name, make = patch
-        monkeypatch.setattr(pipeline, name, make(getattr(pipeline, name)))
+        owner = OWNER.get(name, pipeline)
+        monkeypatch.setattr(owner, name, make(getattr(owner, name)))
     result = run.run_cell({"chips": 1}, CFG, traffic, seed=2**31 + 77,
                           seconds=0.1, trace=False,
                           device=torch.device("cpu"), metrics=[])

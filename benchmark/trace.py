@@ -34,7 +34,7 @@ MARKERS, MARKER_CYCLES = 32, 62_500
 MARKER_NAME = "spin_kernel"
 NAMED_GAPS = 200     # the longest idle gaps named one by one
 # the harness's record_function spans (benchmark/drivers.py)
-SPANS = ("stream_pipeline", "run_pipeline_batched", "harness")
+SPANS = ("stream_pipeline", "run_pipeline_batched", "harness", "ingest")
 # the profiler's activity types of device work, and of its own work
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 DEVICE_TIMELINE = ("kernel", "gpu_")    # the types on the device's timeline
@@ -70,14 +70,18 @@ def _union(intervals) -> Tuple[int, List[Tuple[int, int]]]:
 
 
 def traced(fn: Callable[[], object]):
-    """fn() under the profiler -> (fn's output, Trace)."""
+    """fn() under the profiler -> (fn's output, Trace).  The host events of
+    every thread are recorded (`profile_all_threads`): the files driver's
+    ingest runs on the prefetcher's thread."""
     import json
     import tempfile
+    from torch._C._profiler import _ExperimentalConfig
     from torch.autograd.profiler import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
         _markers()
         out = fn()
         torch.cuda.synchronize()
