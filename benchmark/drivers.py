@@ -3,15 +3,26 @@
 Everything the benchmark calls of the program under test is here: its
 configuration type, its ingest (`data.event_cache.load_npz`, which reads
 an event's file, and `graph.build.build_graph_state`, which puts each
-event's state on the device), its prefetcher (`data.prefetch.prefetch`)
-and its two production drivers, `models.pipeline.stream_pipeline` (one
-event per dispatch) and `models.pipeline.run_pipeline_batched` (a
-stacked batch per dispatch).  The `stream` and `batch` drivers take the
+event's state on the device), its prefetcher (`data.prefetch.prefetch`),
+its KL-threshold table type (`calib.lut.KLThresholdLUT`) and its two
+production drivers, `models.pipeline.stream_pipeline` (one event per
+dispatch) and `models.pipeline.run_pipeline_batched` (a stacked batch
+per dispatch).  The `stream` and `batch` drivers take the
 pool's states, built before the window (`build_states`); the `files`
 driver takes the pool's events as files (`EventFiles`) and builds each
 state inside the window: each event's ingest is a factory that
 `prefetch` runs on its worker thread ahead of `stream_pipeline`, at the
 program's defaults, as a user's job over stored events does.
+
+A configuration with a calibration block (spec.calibration) has its table
+built once, in the set-up, as the program's own KLThresholdLUT (int64
+bins), and handed to both production drivers as the keyword `kl_lut=`:
+the program takes the table and applies it to each event on the device
+inside its captured program (each node's threshold read at its emp_var,
+as the reference does after the window).  A program that does not take
+the keyword stops at the first dispatch with a TypeError, and the run
+prints no result.  Without a calibration the calls are as they were,
+argument for argument.
 
 A driver object runs dispatches in turn, continuing the traffic's order,
 and returns one `Done` per event: the pool event it was, when the
@@ -43,7 +54,7 @@ from typing import Callable, Dict, List, NamedTuple
 import numpy as np
 from torch.profiler import record_function
 
-from benchmark import events
+from benchmark import events, spec
 from benchmark.trace import SPANS
 
 
@@ -89,6 +100,19 @@ def pool_states(traffic: dict, pool: List[Dict[str, np.ndarray]], path,
     return build_states(pool, cfg, device, dtype)
 
 
+def kl_lut(cfg: dict):
+    """The configuration's calibration table as the program's
+    KLThresholdLUT, or None without a calibration block."""
+    block = spec.calibration(cfg)
+    if block is None:
+        return None
+    from gnn_track_finding_tpu_torch.calib.lut import KLThresholdLUT
+    return KLThresholdLUT(block["feature"], block["feature_bin_width"],
+                          block["kl_bin_width"],
+                          np.asarray(block["lower"], np.int64),
+                          np.asarray(block["upper"], np.int64))
+
+
 def _shape(g) -> tuple:
     """A state's pad bucket: padded nodes, padded edges, max degree."""
     return (g.num_padded_nodes, g.num_padded_edges, g.max_degree)
@@ -131,6 +155,9 @@ class Driver:
                  clock: Callable[[], float] = time.perf_counter):
         PipelineConfig, self.build, self.pipeline = program()
         self.cfg = PipelineConfig(**cfg["pipeline"])
+        lut = kl_lut(cfg)
+        # the production drivers' keywords beyond the configuration
+        self.keywords = {} if lut is None else {"kl_lut": lut}
         self.traffic = traffic
         self.kind = traffic["driver"]
         self.states = states
@@ -174,7 +201,8 @@ class Driver:
         out = []
         with record_function(SPANS[0]):
             for j, res in enumerate(self.pipeline.stream_pipeline(
-                    feed, self.cfg, depth=int(self.traffic["depth"]))):
+                    feed, self.cfg, depth=int(self.traffic["depth"]),
+                    **self.keywords)):
                 with record_function(SPANS[2]):
                     t = self.clock()
                     k, t_in, ingest_s, wait_s = handed[j]
@@ -229,7 +257,7 @@ class Driver:
             self.handed += len(ks)
             with record_function(SPANS[1]):
                 res = self.pipeline.run_pipeline_batched(
-                    [self.states[k] for k in ks], self.cfg)
+                    [self.states[k] for k in ks], self.cfg, **self.keywords)
             t = self.clock()
             with record_function(SPANS[2]):
                 out += [Done(k, t_in, t, r.candidates)

@@ -34,6 +34,24 @@ node, edge or candidate row, so each event's answer is its own run's.
 makes: `cluster(tab, ids, found, deact, bug_compat, dtype)` per clustering
 round (rows of nodes `ids`, N past the live ones) and `distinct(ok, x)`
 per distinct-count table.
+
+`calibration` (optional: a configuration's calibration block, a KL-
+threshold table by feature bin) gives each node a KL threshold of its
+own, used in both clustering rounds in place of the configuration's two
+scalars (the chi2 thresholds stay scalar): what the program's host
+driver computes as `run_pipeline(g, cfg, kl_thresholds=
+calib.lut.node_thresholds(table, g, cfg))`.  The feature is `emp_var`,
+each node's xy-gradient variance over its in-edges on the built state
+before the first stage, summed as the program's seeding sums it (the
+in-edge table's row sums in slot order, the count clamped to 1, the
+variance to 0), so that it is the program's to the last bit, NaN where
+a gradient is infinite.  The table is read as numpy reads it
+(`KLThresholdLUT.thresholds_for`): bin trunc(emp_var / bin width),
+clipped to the table; a value numpy's cast to int64 cannot hold (NaN,
+inf, 2**63 and beyond) falls in bin 0, as that cast sends it to the most
+negative integer; the threshold is the bin's upper edge times the KL
+bin width in float64, then cast to the run's dtype.  Without a
+calibration no emp_var is computed and every operation is as before.
 """
 
 from __future__ import annotations
@@ -666,11 +684,13 @@ def gmr_core(pk, valid, node_xyzr, klthr, *, chi2_thr: float, cfg: Config):
             torch.where(found, mprior, zero), remaining & found[:, None])
 
 
-def cluster(g: State, cfg: Config, use_updated: bool, work=None) -> State:
+def cluster(g: State, cfg: Config, use_updated: bool, work=None,
+            kl_thresholds=None) -> State:
     """One GMR clustering round: the nodes with 3..15 member in-edges
     (their first KC in insertion order, gated rows first) through the
     core, the merged states written and the unabsorbed edges
-    deactivated."""
+    deactivated; `kl_thresholds` (N,): each node's KL threshold in place
+    of the configuration's scalar."""
     n, k = g.in_edges.shape
     member = (g.has_updated if use_updated else g.edge_mask) & g.edge_mask
     row = torch.where(member & g.edge_mask, g.dst, n)
@@ -705,7 +725,10 @@ def cluster(g: State, cfg: Config, use_updated: bool, work=None) -> State:
     pk = torch.cat(fields, dim=1)[torch.clamp(tab, min=0)]
     valid = torch.cumprod((tab >= 0).to(torch.uint8), dim=1).bool()
     valid = valid & (torch.arange(n, device=g.device) < count)[:, None]
-    klthr = torch.full((n,), kl_thr, dtype=g.dtype, device=g.device)
+    if kl_thresholds is None:
+        klthr = torch.full((n,), kl_thr, dtype=g.dtype, device=g.device)
+    else:
+        klthr = kl_thresholds[node]
     core = gmr_core(pk, valid, g.xyzr[node], klthr, chi2_thr=chi2_thr,
                     cfg=cfg)
     if work is not None:
@@ -1130,11 +1153,53 @@ def extract(g: State, cfg: Config):
                      active=g.active & new_edge_mask), acc
 
 
+# ------------------------------------------------------------- calibration
+
+def emp_var(g: State) -> torch.Tensor:
+    """(N,) each node's xy-gradient variance over its in-edges on a built
+    state: the in-edge table's row sums in slot order of the edge count,
+    the gradients and their squares, the count clamped to 1 and the
+    variance to 0 (NaN stays NaN)."""
+    n, k = g.in_edges.shape
+    em = g.edge_mask
+    w = em.to(g.dtype)
+    sx, sy = g.e_xyzr[:, 0], g.e_xyzr[:, 1]
+    dx_, dy_ = g.e_xyzr[:, 4], g.e_xyzr[:, 5]
+    gx = torch.where(em, (sy - dy_) / (sx - dx_), 0.0)
+    row = torch.where(em, g.dst, n)
+    s0, s1, s2 = (slot_table(row, g.slot_in, v, n, k, 0.0).sum(dim=1)
+                  for v in (w, w * gx, w * gx * gx))
+    safe = torch.clamp(s0, min=1.0)
+    mean = s1 / safe
+    return torch.clamp(s2 / safe - mean * mean, min=0.0)
+
+
+def lut_thresholds(calibration: dict, feature: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """(N,) KL thresholds: the calibration table read at each node's
+    feature value (module doc)."""
+    upper = torch.as_tensor(calibration["upper"], dtype=torch.int64,
+                            device=feature.device)
+    # a true division (a scalar divisor may become a reciprocal product)
+    q = feature / torch.full_like(feature, calibration["feature_bin_width"])
+    # NaN, inf and 2**63 on (numpy's cast gives INT64_MIN) -> bin 0
+    b = torch.where(q < 2.0 ** 63,
+                    torch.clamp(torch.trunc(q), 0, upper.shape[0] - 1), 0.0)
+    thr = upper[b.to(torch.int64)].to(torch.float64) \
+        * calibration["kl_bin_width"]
+    return thr.to(dtype)
+
+
 # ---------------------------------------------------------------- schedule
 
-def schedule(g: State, cfg: Config, work=None) -> List[List[Accepted]]:
+def schedule(g: State, cfg: Config, work=None,
+             calibration: dict | None = None) -> List[List[Accepted]]:
     """The whole schedule on a built state -> each event's accepted
-    candidates, iteration by iteration."""
+    candidates, iteration by iteration; `calibration`: per-node KL
+    thresholds from its table (module doc)."""
+    kl_thresholds = None
+    if calibration is not None:
+        kl_thresholds = lut_thresholds(calibration, emp_var(g), g.dtype)
     g = seed_track_states(g, cfg)
     g = g.replace(active=g.edge_mask)
     g = compute_prior_probabilities(g, use_updated=False)
@@ -1145,7 +1210,8 @@ def schedule(g: State, cfg: Config, work=None) -> List[List[Accepted]]:
             g = message_passing(g, cfg)
             g = reweight_stage(g, cfg, n_passes=2, work=work)
         else:
-            g = cluster(g, cfg, use_updated=i > 1, work=work)
+            g = cluster(g, cfg, use_updated=i > 1, work=work,
+                        kl_thresholds=kl_thresholds)
         g, acc = extract(g, cfg)
         out.append(acc)
         if i % 2 == 0:
@@ -1168,8 +1234,9 @@ def blocks(count: int, n_pad: int) -> List[range]:
 
 
 def run_events(events: List[Dict[str, np.ndarray]], cfg: Config, *, device,
-               dtype=torch.float64, work=None) -> List[List[Accepted]]:
+               dtype=torch.float64, work=None,
+               calibration: dict | None = None) -> List[List[Accepted]]:
     """build, then schedule, of events' raw arrays (xyzr, vivl, pairs,
     mirror), all in one union -> each event's answer."""
     return schedule(build(events, cfg, device=device, dtype=dtype), cfg,
-                    work)
+                    work, calibration)

@@ -20,7 +20,8 @@ benchmark/metrics/<name>.py.  A run:
      `trace_dispatches` further dispatches (the per-layer metrics);
   4. the peak device memory is read, the program's state freed, and the
      reference (benchmark/reference) run on every pool event at the
-     configuration's precision; every finished event is compared with it
+     configuration's precision, with the configuration's calibration
+     table where it has one; every finished event is compared with it
      (benchmark/check.py).
 
 The last line on stdout is the result's JSON; stderr ends with the
@@ -143,12 +144,13 @@ def run_cell(cell: dict, cfg: dict, traffic: dict, *, seed: int,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     rcfg = reference.Config.from_dict(cfg["pipeline"])
+    calibration = spec.calibration(cfg)
     answers = {}
     for block in reference.blocks(len(pool), bucket["nodes"]):
         work = roofline.Work(len(block), bucket["nodes"])
         for k, acc in zip(block, reference.run_events(
                 [pool[k] for k in block], rcfg, device=device, dtype=dtype,
-                work=work)):
+                work=work, calibration=calibration)):
             answers[k] = check.reference_keys(acc)
             run.work[k] = {name: v[k - block.start]
                            for name, v in work.seconds.items()}

@@ -5,6 +5,16 @@ A configuration is `benchmark/configs/<name>.json`, a traffic mix
 `benchmark/traffic/<name>.json`, a metric `benchmark/metrics/<name>.py`
 (a module with `read(run) -> float | None`).  Adding one is adding its
 file and its entry in BENCHMARK.json; no file here changes.
+
+A configuration may carry a calibration block beside `pipeline` (which
+stays the program's PipelineConfig field for field): the KL-threshold
+table a run uses, by feature bin, as the program's calib/lut.py fits it
+and its text file holds it (row i: i, lower, upper), with the two bin
+widths the text file does not carry:
+
+    "calibration": {"feature": "emp_var", "feature_bin_width": 705.51...,
+                    "kl_bin_width": 4339417.07..., "lower": [...],
+                    "upper": [...], "source": "..."}
 """
 
 from __future__ import annotations
@@ -12,6 +22,7 @@ from __future__ import annotations
 import hashlib
 import importlib.util
 import json
+import math
 from pathlib import Path
 from types import ModuleType
 from typing import List
@@ -44,6 +55,47 @@ def workload(bench: dict, name: str) -> dict:
 
 def config(name: str, here: Path = HERE) -> dict:
     return _json(here / "configs" / f"{name}.json")
+
+
+CALIBRATION_KEYS = ("feature", "feature_bin_width", "kl_bin_width", "lower",
+                    "upper", "source")
+
+
+def calibration(cfg: dict) -> dict | None:
+    """The configuration's calibration block, checked, or None without
+    one: the feature `emp_var`, two finite positive bin widths, and per
+    feature bin an accepted KL band [lower, upper) in KL bins, whole
+    numbers with lower <= upper."""
+    block = cfg.get("calibration")
+    if block is None:
+        return None
+    if not isinstance(block, dict):
+        raise SpecError("the calibration block is not an object")
+    missing = [k for k in CALIBRATION_KEYS if k not in block]
+    if missing:
+        raise SpecError(f"the calibration block lacks {missing}")
+    if block["feature"] != "emp_var":
+        raise SpecError(f"calibration feature {block['feature']!r}: only "
+                        f"'emp_var' is read")
+    for k in ("feature_bin_width", "kl_bin_width"):
+        v = block[k]
+        if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                or not math.isfinite(v) or v <= 0:
+            raise SpecError(f"calibration {k} {v!r} is not a finite "
+                            f"positive number")
+    lower, upper = block["lower"], block["upper"]
+    if not isinstance(lower, list) or not isinstance(upper, list) \
+            or not lower or len(lower) != len(upper):
+        raise SpecError("calibration lower and upper are not two lists of "
+                        "one length of at least 1")
+    for v in lower + upper:
+        if isinstance(v, bool) or not isinstance(v, int) or v < 0:
+            raise SpecError(f"calibration bin value {v!r} is not a whole "
+                            f"number of at least 0")
+    bad = [i for i, (lo, hi) in enumerate(zip(lower, upper)) if lo > hi]
+    if bad:
+        raise SpecError(f"calibration lower > upper in bins {bad}")
+    return {k: block[k] for k in CALIBRATION_KEYS}
 
 
 def traffic(name: str, here: Path = HERE) -> dict:
