@@ -165,6 +165,63 @@ def test_pack_results_bytes_equal_jax(narrow, wide_pv, shape):
     np.testing.assert_array_equal(n2, np.where(nodes == -1, sentinel, nodes))
 
 
+@pytest.mark.parametrize("narrow,wide_pv,shape,overflow", [
+    (True, True, (5, 7), False), (False, False, (4, 8), False),
+    (True, False, (4, 8), False), (False, True, (5, 7), False),
+    (True, True, (5, 7), True)],
+    ids=["narrow-f64-odd", "wide-f32-even", "narrow-f32-even",
+         "wide-f64-odd", "overflow-first"])
+def test_unpack_packed_equals_jax_candidates(monkeypatch, narrow, wide_pv,
+                                             shape, overflow):
+    """The port's candidate build from a packed readback (pack_results,
+    then the rounds and overflow words) against JAX's per-candidate loop
+    (_unpack_packed over the same bytes): the same candidates in the same
+    order, field by field, nodes int64 with every sentinel dropped, also
+    mid-row; an iteration with no candidates and one at the cap.  An
+    overflow word with valid counts returns run_pipeline's result and
+    builds no candidate."""
+    rng = np.random.default_rng(5)
+    cap, length = shape
+    n_it = CFG.num_iterations
+    nodes = rng.integers(0, 0xFFFF if narrow else 2**30,
+                         size=(n_it, cap, length)).astype(np.int32)
+    nodes[rng.random(nodes.shape) < 0.4] = -1
+    counts = np.array([cap, 0, cap // 2], np.int32)
+    live = nodes[0, :cap] != -1
+    assert (live[:, 1:] & ~live[:, :-1]).any()     # a sentinel mid-row
+    pvals = rng.standard_normal((n_it, cap, 2)).astype(
+        np.float64 if wide_pv else np.float32)
+    packed = pipeline.pack_results(torch.from_numpy(counts).long(),
+                                   torch.from_numpy(nodes).long(),
+                                   torch.from_numpy(pvals), narrow).numpy()
+    rounds = np.array([3, 2, 1], np.int32)
+    flags = np.array([0, int(overflow), 0], np.int32)
+    buf = np.concatenate([packed, rounds, flags])
+    g_in, g_out = object(), object()
+    if overflow:
+        rerun = object()
+        monkeypatch.setattr(pipeline, "run_pipeline",
+                            lambda g, cfg, host_cca: (g, host_cca, rerun))
+        monkeypatch.setattr(pipeline, "Candidate", None)   # never built
+        before = pipeline.fallbacks
+        out = pipeline.unpack_packed(g_in, g_out, buf, CFG)
+        assert out == (g_in, False, rerun)
+        assert pipeline.fallbacks == before + 1
+        return
+    want = jax_pipeline._unpack_packed(None, None, packed, JCFG).candidates
+    out = pipeline.unpack_packed(g_in, g_out, buf, CFG)
+    assert out.graph is g_out and out.per_iteration == []
+    assert out.cca_rounds == rounds.tolist()
+    assert [c.iteration for c in out.candidates] == [1] * cap + [3] * (cap // 2)
+    assert len(out.candidates) == len(want)
+    for got, ref in zip(out.candidates, want):
+        assert got.nodes.dtype == np.int64
+        np.testing.assert_array_equal(got.nodes, ref.nodes)
+        assert (got.iteration, got.pval_xy, got.pval_zr) == \
+            (ref.iteration, ref.pval_xy, ref.pval_zr)
+        assert type(got.pval_xy) is float and type(got.pval_zr) is float
+
+
 @pytest.mark.parametrize("limit", ["cap", "rounds"])
 def test_overflow_takes_the_exact_fallback(monkeypatch, limit):
     """An accepted count over the head cap, or FastSV cut below the rounds
