@@ -116,17 +116,16 @@ program run op by op), so their rows stay comparable with earlier runs:
      (the first stream captures while the prefetch thread works); and no
      event falls back to the host driver.  Its record is printed as one
      JSON line;
- 12. the bench (`python -m gnn_track_finding_tpu_torch.bench`) as a
-     subprocess at float32 and at float64: exit code 0, its two metric
-     lines (names, keys, positive values), its kernel gate passed (both
-     kernels against their plain versions, the float64 counts), both
-     kernels launched, the card's name and power limit beside the
-     numbers; and its captured message-passing loop (N_REP replays of one
-     captured extrapolation_stage) bitwise the same number of eager
-     stage calls at float64.  Its record is printed as one JSON line;
+ 12. the kernel gate (testing.kernel_gate) on the full event at float64
+     and float32, in this process: both kernels against their plain
+     versions on the event's own inputs (bitwise at float64; at float32
+     under 6% flag flips and rtol 1e-5), the accepted counts against the
+     reference's [1504, 436, 9] at float64 and the eager schedule's at
+     float32, every kernel launched.  Its record is printed as one JSON
+     line, {"kernel_gate": ...};
  13. the event batch (parallel/mesh.stack_events,
      pipeline.run_pipeline_batched): copies of the full event rotated
-     about the beam axis (bench.load_rotated: the same graph, other
+     about the beam axis (testing.load_event: the same graph, other
      floats) as one captured program.  At float64, 4 copies (copy b by
      b * 2 pi / 4): each event's candidates, p-values, FastSV rounds and
      final state bitwise its own single-event replay and the batched
@@ -138,7 +137,7 @@ program run op by op), so their rows stay comparable with earlier runs:
      torch.cuda.set_sync_debug_mode("error"); at float32 each event's
      counts equal to its single replay's.  Both kernels against their
      plain versions on the 4 events' inputs (the seed round's rows, the
-     first reweight table), bitwise at float64 and in the bench's band at
+     first reweight table), bitwise at float64 and in the gate's band at
      float32, with device times (L2 flushed and warm), plain times and
      bounds.  Events/s of one batched replay against B single replays in
      turn, each clock ending in torch.cuda.synchronize() (best of 3), on
@@ -362,7 +361,7 @@ def fit_phase(card, cuda, graph) -> dict:
     and one launch per call.  At the configured mode: the kernel's device
     time (L2 flushed and warm), the plain loop's (captured, L2 flushed)
     and the bound (fit_bound).  Returns the phase's record."""
-    from gnn_track_finding_tpu_torch import bench, testing
+    from gnn_track_finding_tpu_torch import testing
     from gnn_track_finding_tpu_torch.ops import extract, fit_kernel
     from gnn_track_finding_tpu_torch.parallel import mesh
     print(f"card: {card}")
@@ -370,8 +369,8 @@ def fit_phase(card, cuda, graph) -> dict:
     g, cfg = graph(FULL, torch.float64)
     cfg7 = graph(VOL7, torch.float64)[1]
     stack = mesh.stack_events([
-        bench.load_rotated(VOL7, cfg7, b, 32, device=cuda,
-                           dtype=torch.float64) for b in range(32)])
+        testing.load_event(VOL7, cfg7, device=cuda, dtype=torch.float64,
+                           copy=b, copies=32) for b in range(32)])
     sets = {"full event": (testing.extraction_rows(g, cfg), cfg),
             "volume 7 x 32": (testing.extraction_rows(stack, cfg7), cfg7)}
     del g, stack
@@ -431,13 +430,13 @@ def fit_phase(card, cuda, graph) -> dict:
 
 
 def core_case(label, inputs, cfg, chi2_thr, check_found=True):
-    """The kernel against the plain version with the bench's gate
-    (bench.compare_cluster: bitwise at float64, the flag band at float32),
+    """The kernel against the plain version with the kernel gate's bars
+    (testing.compare_cluster: bitwise at float64, the flag band at float32),
     over every row (those past a live count in inputs[4] come out not
     found from both).  Returns the largest |diff|."""
-    from gnn_track_finding_tpu_torch import bench
-    s = bench.compare_cluster(inputs, chi2_thr=chi2_thr, cfg=cfg,
-                              require_merged=check_found, label=label)
+    from gnn_track_finding_tpu_torch import testing
+    s = testing.compare_cluster(inputs, chi2_thr=chi2_thr, cfg=cfg,
+                                require_merged=check_found, label=label)
     torch.cuda.synchronize()
     print(f"{label}: {s['live']} live rows of {s['rows']} x "
           f"kc={inputs[1].shape[1]}, found {s['found']} (plain "
@@ -1317,99 +1316,56 @@ def captured_phase(card, cuda, graph, counts):
     return record
 
 
-def bench_phase(card, cuda):
-    """Phase 12: `python -m gnn_track_finding_tpu_torch.bench` as a user
-    runs it, at float32 and float64 (exit code 0, its two metric lines,
-    positive values, the gate passed, the card beside the numbers), and,
-    in this process, its captured message-passing loop against the same
-    number of eager extrapolation_stage calls, bitwise at float64.
-    Returns the record of the phase (the kernels' launches in each bench
-    run and in the loop among it)."""
-    from gnn_track_finding_tpu_torch import bench
+def gate_phase(card, cuda):
+    """Phase 12: the kernel gate (testing.kernel_gate) on the full event
+    at float64 and float32: both kernels against their plain versions on
+    the event's own inputs (the seed round's rows of the prepared state,
+    iteration 2's first reweight table), bitwise at float64 and in the
+    gate's band at float32, and run_pipeline_fast's accepted counts
+    against the reference's at float64 and the eager schedule's at
+    float32; every kernel launched.  Returns the record of the phase
+    (each dtype's agreement, counts and launches)."""
+    from gnn_track_finding_tpu_torch import testing
+    from gnn_track_finding_tpu_torch.config import PipelineConfig
     from gnn_track_finding_tpu_torch.models import pipeline
     t_phase = time.perf_counter()
-    pipeline.clear_programs()
-    torch.cuda.empty_cache()
-    record = {}
-    keys = ["metric", "value", "unit", "vs_baseline"]
-    for dtype, argv, suffix in (("float32", [], ""),
-                                ("float64", ["--dtype", "float64"],
-                                 "_float64")):
-        proc = subprocess.run(
-            [sys.executable, "-m", "gnn_track_finding_tpu_torch.bench"] + argv,
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        log = proc.stderr.splitlines()
-        for line in log:
-            if line.startswith("[bench]"):
-                print("  " + line)
-        check(proc.returncode == 0, f"bench {dtype} exited "
-              f"{proc.returncode}: {proc.stderr[-3000:]}")
-        lines = [json.loads(line) for line in proc.stdout.splitlines()]
-        names = [f"full_pipeline_seconds_full_event{suffix}",
-                 f"message_passing_edges_per_s_full_event{suffix}"]
-        check([line.get("metric") for line in lines] == names
-              and all(list(line) == keys and line["value"] > 0
-                      and line["vs_baseline"] > 0 for line in lines),
-              f"bench {dtype}: metric lines {lines}")
-        check(any(line.startswith("[bench] kernel gate passed")
-                  for line in log), f"bench {dtype}: no gate line")
-        check(any(card in line for line in log),
-              f"bench {dtype}: the card ({card}) is not named")
-        rec = json.loads(next(line for line in reversed(log)
-                              if line.startswith('{"bench"')))["bench"]
-        check(rec["card"] == card, f"bench {dtype}: card {rec['card']}")
+    cfg = PipelineConfig(min_volume=7, max_volume=14)
+    record = {"card": card}
+    for dtype, expected in ((torch.float64, EXPECTED_F64[FULL]),
+                            (torch.float32, None)):
+        name = str(dtype).split(".")[1]
+        pipeline.clear_programs()
+        torch.cuda.empty_cache()
+        pipeline.reset_kernel_launches()
+        g = testing.load_event(FULL, cfg, device=cuda, dtype=dtype)
+        rec = testing.kernel_gate(g, cfg, expected)
+        rec["launches"] = pipeline.kernel_launches()
         check(all(v > 0 for v in rec["launches"].values()),
-              f"bench {dtype}: a kernel was not launched: {rec['launches']}")
-        if suffix:
-            check(rec["gate"]["accepted"] == bench.EXPECTED_F64,
-                  f"bench float64 counts {rec['gate']['accepted']}")
-        record[dtype] = {"lines": lines, "record": rec}
-        print(f"bench {dtype}: " + "; ".join(
-            f"{line['metric']} {line['value']} {line['unit']}"
-            for line in lines) + f" ({card})")
-
-    # the captured loop against the eager one, float64, full event
-    g = bench.load_event(bench.FULL_EVENT, bench.CFG, device=cuda,
-                         dtype=torch.float64)
-    g1 = bench.clustered(g, bench.CFG)
-    pipeline.reset_kernel_launches()
-    stage = bench.CapturedStage(g1, bench.CFG)
-    looped = bench.message_passing_loop(g1, bench.CFG, bench.N_REP, stage)
-    launches = pipeline.kernel_launches()
-    eager = g1
-    for _ in range(bench.N_REP):
-        eager = pipeline.extrapolation_stage(eager, bench.CFG)
-    bad = state_diff(looped.final, eager)
-    record["loop"] = {"launches": launches,
-                      "launches_per_replay": stage.kernel_launches,
-                      "checksum": looped.checksum,
-                      "iteration_s": looped.seconds}
-    print(f"captured message-passing loop, {bench.N_REP} replays, full event "
-          f"float64: checksum {looped.checksum} (eager "
-          f"{int(eager.active.sum())}), {looped.seconds * 1e3:.4f} ms per "
-          f"iteration; bitwise the eager loop: {not bad} {bad}; kernel "
-          f"launches (warm-up + capture) {launches}, per replay "
-          f"{stage.kernel_launches}")
-    check(not bad, f"the captured loop differs from the eager one in {bad}")
-    check(looped.checksum == int(eager.active.sum()), "loop checksum")
-    check(launches["distinct_counts"] > 0 and stage.kernel_launches[
-        "distinct_counts"] > 0, "distinct_counts is not in the captured loop")
-    del stage
+              f"kernel gate {name}: a kernel was not launched: "
+              f"{rec['launches']}")
+        record[name] = rec
+        print(f"kernel gate, full event {name} ({card}): gmr_cluster "
+              f"{rec['gmr_cluster']}; distinct_counts "
+              f"{rec['distinct_counts']}; accepted {rec['accepted']}; "
+              f"launches {rec['launches']}")
+        del g
     pipeline.clear_programs()
     torch.cuda.empty_cache()
-    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
-    print(json.dumps({"bench": record}))
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12: {record['seconds']:.1f} s")
+    print(json.dumps({"kernel_gate": record}))
     return record
 
 
 def batch_phase(card, cuda):
     """Phase 13: B events of one pad bucket as one captured program
     (parallel/mesh.stack_events, pipeline.run_pipeline_batched).  Copies
-    of the full event rotated about the beam axis (bench.load_rotated: the
+    of the full event rotated about the beam axis (testing.load_event: the
     same graph, other floats) make distinct events.  Returns the record of
     the phase (the kernels' launches, agreement, times and bounds on the
     batched inputs among it)."""
-    from gnn_track_finding_tpu_torch import bench
+    from gnn_track_finding_tpu_torch import testing
+    from gnn_track_finding_tpu_torch.config import PipelineConfig
     from gnn_track_finding_tpu_torch.data.event_cache import load_npz
     from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
@@ -1422,17 +1378,18 @@ def batch_phase(card, cuda):
     pipeline.clear_programs()
     torch.cuda.empty_cache()
     fallbacks = pipeline.fallbacks
-    cfg = bench.CFG
+    cfg = PipelineConfig(min_volume=7, max_volume=14)
     record = {"card": card}
 
     vivl = load_npz(VOL7)[1]
-    vol7_cfg = type(cfg)(min_volume=int(vivl[:, 0].min()),
-                         max_volume=int(vivl[:, 0].max()))
+    vol7_cfg = PipelineConfig(min_volume=int(vivl[:, 0].min()),
+                              max_volume=int(vivl[:, 0].max()))
 
     def copies(path, count, dtype, turn=8):
         """The first `count` copies of the event rotated by b * 2 pi / turn."""
-        return [bench.load_rotated(path, cfg if path == FULL else vol7_cfg,
-                                   b, turn, device=cuda, dtype=dtype)
+        return [testing.load_event(path, cfg if path == FULL else vol7_cfg,
+                                   device=cuda, dtype=dtype, copy=b,
+                                   copies=turn)
                 for b in range(count)]
 
     # float64, B = 4: copy b rotated by b * 2 pi / 4, against each copy's
@@ -1454,7 +1411,7 @@ def batch_phase(card, cuda):
     bad = {b: bitwise_diff(first[b], singles[b])
            + bitwise_diff(replayed[b], singles[b])
            + bitwise_diff(replayed[b], eager[b]) for b in range(4)}
-    per_copy = [bench.per_iteration(o, cfg) for o in replayed]
+    per_copy = [testing.per_iteration(o, cfg) for o in replayed]
     print(f"full event float64, 4 rotated copies in one captured program: "
           f"accepted {per_copy}, FastSV rounds "
           f"{[o.cca_rounds for o in replayed]}; kernel launches in the first "
@@ -1507,13 +1464,14 @@ def batch_phase(card, cuda):
         g2, _ = pipeline.iteration(prepared, cfg, 1)
         ok, xt, nx = priors.distinct_inputs(extrapolate.message_passing(g2,
                                                                         cfg))
-        stats = bench.compare_distinct(ok, xt, nx)
+        stats = testing.compare_distinct(ok, xt, nx)
         run = lambda: distinct_kernel.distinct_counts(ok, xt, nx)
         rec = {"shape": f"{tuple(ok.shape)}", "max_abs_err": 0.0,
                "ok_slots": stats["ok_slots"],
                "ms": device_ms(run, flush=flush),
                "ms_warm_l2": device_ms(run),
-               "plain_ms": call_ms(lambda: bench._distinct_plain(ok, xt, nx)),
+               "plain_ms": call_ms(lambda: testing._distinct_plain(ok, xt,
+                                                                   nx)),
                **distinct_bound(ok, xt)}
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         kernels[f"distinct_counts {name}"] = rec
@@ -1530,8 +1488,8 @@ def batch_phase(card, cuda):
     # float32, B = 4: per-event counts equal the single-event replays'
     singles32 = [pipeline.run_pipeline_fast(g, cfg) for g in evs32]
     batched32 = pipeline.run_pipeline_batched(evs32, cfg)
-    c32 = [bench.per_iteration(o, cfg) for o in batched32]
-    check(c32 == [bench.per_iteration(o, cfg) for o in singles32],
+    c32 = [testing.per_iteration(o, cfg) for o in batched32]
+    check(c32 == [testing.per_iteration(o, cfg) for o in singles32],
           f"float32 batched counts {c32} differ from the single replays'")
     record["float32_b4"] = {"accepted": c32, "bitwise_single": not any(
         bitwise_diff(a, b) for a, b in zip(batched32, singles32))}
@@ -1585,13 +1543,15 @@ def batch_phase(card, cuda):
                 pend = prog.launch_batch(sb, graphs)
                 torch.cuda.synchronize()
                 walls["batched"].append(time.perf_counter() - t0)
-                got = [bench.per_iteration(p.result(), ecfg) for p in pend]
+                got = [testing.per_iteration(p.result(), ecfg)
+                       for p in pend]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 pend = [single.launch(g) for g in graphs]
                 torch.cuda.synchronize()
                 walls["sequential"].append(time.perf_counter() - t0)
-                want = [bench.per_iteration(p.result(), ecfg) for p in pend]
+                want = [testing.per_iteration(p.result(), ecfg)
+                        for p in pend]
                 check(got == want, f"{label} {name} B={b}: batched counts "
                       f"{got}, single {want}")
             best = {k: min(v) for k, v in walls.items()}
@@ -1634,16 +1594,18 @@ def batch_phase(card, cuda):
 
 def batched_sharded_phase(card, cuda):
     """Phase 14: batched x edge-sharded execution at float64 on rotated
-    copies of the full event (bench.load_rotated): a data rank's events as
+    copies of the full event (testing.load_event): a data rank's events as
     their union, edge-partitioned over the edge group as one program per
     rank (parallel/mesh.run_batched, edge_shard.run_sharded on a stack).
     Returns the record of the phase (the kernels' launches, agreement,
     times and bounds on the union's owner rows among it)."""
     from collections import Counter
 
-    from gnn_track_finding_tpu_torch import bench, testing
+    from gnn_track_finding_tpu_torch import testing
+    from gnn_track_finding_tpu_torch.config import PipelineConfig
     from gnn_track_finding_tpu_torch.models import pipeline
     f64 = torch.float64
+    cfg = PipelineConfig(min_volume=7, max_volume=14)
     t_phase = time.perf_counter()
     pipeline.clear_programs()
     torch.cuda.empty_cache()
@@ -1676,8 +1638,9 @@ def batched_sharded_phase(card, cuda):
     # the single-device reference: each copy's own captured replay
     refs = []
     for b in range(2):
-        g = bench.load_rotated(FULL, bench.CFG, b, 2, device=cuda, dtype=f64)
-        (res,) = pipeline.run_schedule_batched([g], bench.CFG)
+        g = testing.load_event(FULL, cfg, device=cuda, dtype=f64, copy=b,
+                               copies=2)
+        (res,) = pipeline.run_schedule_batched([g], cfg)
         refs.append((res.acc_count.tolist(), res.acc_nodes.cpu().numpy(),
                      res.acc_pvals.cpu().numpy(), res.graph.to_numpy()))
         del g, res
@@ -1794,7 +1757,7 @@ def batched_sharded_phase(card, cuda):
           == sum(map(sum, accepted)), f"scaling_report checksums {rep}")
     record["scaling_report"] = rep
 
-    owner = owner_rows_records(cap["kernel_inputs"], bench.CFG, cuda,
+    owner = owner_rows_records(cap["kernel_inputs"], cfg, cuda,
                                "the 4-copy union, NCCL rank of 1")
     record["kernels"] = owner
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1814,7 +1777,7 @@ def profile_phase(card, cuda):
     one replay's, their CUDA-event times printed beside; FastSV's needed
     rounds at most cca.R_CAP in every extraction).  Returns the phase's
     record."""
-    from gnn_track_finding_tpu_torch import bench, profile_stages
+    from gnn_track_finding_tpu_torch import profile_stages, testing
     from gnn_track_finding_tpu_torch.graph import cca
     from gnn_track_finding_tpu_torch.graph.state import stack_events
     from gnn_track_finding_tpu_torch.models import pipeline
@@ -1823,14 +1786,15 @@ def profile_phase(card, cuda):
     t_phase = time.perf_counter()
     pipeline.clear_programs()
     torch.cuda.empty_cache()
-    cfg = bench.CFG
+    cfg = profile_stages.CFG
     runs = (("full event float64", f64, 1), ("full event float32", f32, 1),
             ("4 rotated full copies stacked float64", f64, 4))
     record = {}
     for label, dtype, copies in runs:
         t0 = time.perf_counter()
-        g = stack_events([bench.load_rotated(FULL, cfg, c, copies,
-                                             device=cuda, dtype=dtype)
+        g = stack_events([testing.load_event(FULL, cfg, device=cuda,
+                                             dtype=dtype, copy=c,
+                                             copies=copies)
                           for c in range(copies)])
         prof = profile_stages.profile(g, cfg)
         seconds = time.perf_counter() - t0
@@ -2364,11 +2328,8 @@ def main() -> int:
     per_replay = captured["programs"]["full event float64"][
         "launches_per_replay"]
 
-    phase("12. the bench: python -m gnn_track_finding_tpu_torch.bench")
-    benched = bench_phase(card, cuda)
-    bench_launches = lambda name: {
-        dtype: benched[dtype]["record"]["launches"][name]
-        for dtype in ("float32", "float64")}
+    phase("12. the kernel gate on the full event (float64, float32)")
+    gate_phase(card, cuda)
 
     phase("13. the event batch: B events in one captured program")
     batched = batch_phase(card, cuda)
@@ -2442,7 +2403,6 @@ def main() -> int:
              for rnd in ("seed", "updated")},
          "launches_clean_volume7": clean_launches["gmr_cluster"],
          "launches_studies": studies("gmr_cluster"),
-         "launches_bench": bench_launches("gmr_cluster"),
          "launches_sharded": sharded_launches["gmr_cluster"],
          "owner_rows": {rnd: owner[f"gmr_cluster {rnd}"]
                         for rnd in ("seed", "updated")},
@@ -2469,7 +2429,6 @@ def main() -> int:
          "launches_sharded": sharded_launches["distinct_counts"],
          "launches_clean_volume7": clean_launches["distinct_counts"],
          "launches_studies": studies("distinct_counts"),
-         "launches_bench": bench_launches("distinct_counts"),
          "owner_rows": owner["distinct_counts"],
          "times": {k: v for k, v in times.items()
                    if k.startswith("distinct_counts")},
@@ -2492,7 +2451,6 @@ def main() -> int:
          "launches_sharded": sharded_launches["kf_fit"],
          "launches_clean_volume7": clean_launches["kf_fit"],
          "launches_studies": studies("kf_fit"),
-         "launches_bench": bench_launches("kf_fit"),
          "calls": fit_calls,
          "occupancy": {k: v for k, v in occupancy.items()
                        if k.startswith("kf_fit")},

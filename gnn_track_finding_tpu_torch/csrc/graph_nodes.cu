@@ -1,5 +1,5 @@
 // Node count of a captured CUDA graph, for the capture record of
-// models/pipeline.CapturedGraph: torch.cuda.CUDAGraph(keep_graph=True)
+// models/pipeline.CapturedSchedule: torch.cuda.CUDAGraph(keep_graph=True)
 // hands out its cudaGraph_t (raw_cuda_graph) before it is instantiated.
 // Host code only; no kernel.
 

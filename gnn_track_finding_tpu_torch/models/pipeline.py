@@ -468,7 +468,7 @@ def reset_kernel_launches() -> None:
 
 
 class Capture(NamedTuple):
-    """What one capture (CapturedGraph._capture) cost."""
+    """What one capture (CapturedSchedule._capture) cost."""
     bucket: tuple           # the inputs' (padded N, padded E, K, B)
     warmup_s: float         # the eager warm-up, to its end on the device
     record_s: float         # torch.cuda.graph's block: the device
@@ -486,13 +486,63 @@ class Capture(NamedTuple):
 captures: List[Capture] = []
 
 
-class CapturedGraph:
-    """A program captured once as one CUDA graph (`_capture`): `graph`,
-    `capture` (what the capture cost, a Capture) and `kernel_launches`
-    (the hand-written kernels' launches captured, by kernel, which every
-    replay makes: the kernels' own counters count the warm-up and the
-    capture, never a replay; the graph's nodes, every op of the body, are
-    `capture.graph_nodes`)."""
+class CapturedSchedule:
+    """full_pipeline_results of one pad bucket and its packed readback
+    (packed_words), captured once as one CUDA graph and replayed per
+    event (`launch` for the packed readback, `replay` for the results on
+    the device); under an edge partition (`group`, `routing`: an NCCL
+    group on the card) the rank's full_pipeline_results, its collectives
+    inside the graph, with the routing's tensors among the inputs
+    (`replay`).  Every rank of the group captures in lockstep: the same
+    ops and collectives in the same order, since each runs the same
+    program.  A stacked batch of B events (graph/state.stack_events) is
+    one program of its own (program_key holds B): one replay runs all B
+    events and one readback brings back their B rows.  Under an edge
+    partition a stack is this rank's block of the union, its routing
+    built over the union (parallel/edge_shard.py; the key holds the
+    routing's bucket, which grows with B): `replay` clones the (B, I, ...)
+    results out as they are, and every rank captures the same chunks in
+    the same order.
+
+    The capture (`_capture`) sets `graph`, `capture` (what the capture
+    cost, a Capture) and `kernel_launches` (the hand-written kernels'
+    launches captured, by kernel, which every replay makes: the kernels'
+    own counters count the warm-up and the capture, never a replay; the
+    graph's nodes, every op of the body, are `capture.graph_nodes`).  A
+    prefetch thread may go on building the next event on the device while
+    it runs.  The program's memory (every intermediate of one event, in
+    the graph's private pool, and a copy of one event's state as its
+    inputs) stays reserved while it is cached.  Each event: its state
+    tensors are copied into the program's inputs (device to device), the
+    graph is replayed, the final state is cloned out of the program's
+    outputs (a fresh GraphState, as JAX returns a fresh g_out) and the
+    packed buffer is copied, non-blocking, into a pinned host slot;
+    nothing of that waits for the device."""
+
+    def __init__(self, g: GraphState, cfg: PipelineConfig, group=None,
+                 routing=None):
+        self.cfg = cfg
+        _build.library()                      # nvcc outside the capture
+        self.inputs = {name: getattr(g, name).clone()
+                       for name in tensor_fields()}
+        static = g.replace(n_nodes=0, n_edges=0, event_nodes=(),
+                           event_edges=(), **self.inputs)
+        self.routing_inputs = {}
+        if group is None:
+            def body():
+                res = full_pipeline_results(static, cfg)
+                return res, packed_words(res)
+            self.results, self.packed = self._capture(body, g)
+            self.out = self.results.graph
+        else:
+            self.routing_inputs = {name: t.clone() for name, t in
+                                   _routing_tensors(routing).items()}
+            static_routing = dataclasses.replace(routing,
+                                                 **self.routing_inputs)
+            self.results = self._capture(
+                lambda: full_pipeline_results(static, cfg, group,
+                                              static_routing), g)
+        self._free: List[_Slot] = []
 
     def _capture(self, body, g: GraphState):
         """body() once on a side stream (the warm-up), then captured in
@@ -530,61 +580,6 @@ class CapturedGraph:
             kernel_launches=self.kernel_launches)
         captures.append(self.capture)
         return out
-
-
-class CapturedSchedule(CapturedGraph):
-    """full_pipeline_results of one pad bucket and its packed readback
-    (packed_words), captured once as one CUDA graph and replayed per
-    event (`launch` for the packed readback, `replay` for the results on
-    the device); under an edge partition (`group`, `routing`: an NCCL
-    group on the card) the rank's full_pipeline_results, its collectives
-    inside the graph, with the routing's tensors among the inputs
-    (`replay`).  Every rank of the group captures in lockstep: the same
-    ops and collectives in the same order, since each runs the same
-    program.  A stacked batch of B events (graph/state.stack_events) is
-    one program of its own (program_key holds B): one replay runs all B
-    events and one readback brings back their B rows.  Under an edge
-    partition a stack is this rank's block of the union, its routing
-    built over the union (parallel/edge_shard.py; the key holds the
-    routing's bucket, which grows with B): `replay` clones the (B, I, ...)
-    results out as they are, and every rank captures the same chunks in
-    the same order.
-
-    A prefetch thread may go on building the next event on the device
-    while the capture (CapturedGraph._capture) runs.  The program's
-    memory (every intermediate of one event, in the graph's private pool,
-    and a copy of one event's state as its inputs) stays reserved while
-    it is cached.  Each event: its state tensors are copied into the
-    program's inputs (device to device), the graph is replayed, the final
-    state is cloned out of the program's outputs (a fresh GraphState, as
-    JAX returns a fresh g_out) and the packed buffer is copied,
-    non-blocking, into a pinned host slot; nothing of that waits for the
-    device."""
-
-    def __init__(self, g: GraphState, cfg: PipelineConfig, group=None,
-                 routing=None):
-        self.cfg = cfg
-        _build.library()                      # nvcc outside the capture
-        self.inputs = {name: getattr(g, name).clone()
-                       for name in tensor_fields()}
-        static = g.replace(n_nodes=0, n_edges=0, event_nodes=(),
-                           event_edges=(), **self.inputs)
-        self.routing_inputs = {}
-        if group is None:
-            def body():
-                res = full_pipeline_results(static, cfg)
-                return res, packed_words(res)
-            self.results, self.packed = self._capture(body, g)
-            self.out = self.results.graph
-        else:
-            self.routing_inputs = {name: t.clone() for name, t in
-                                   _routing_tensors(routing).items()}
-            static_routing = dataclasses.replace(routing,
-                                                 **self.routing_inputs)
-            self.results = self._capture(
-                lambda: full_pipeline_results(static, cfg, group,
-                                              static_routing), g)
-        self._free: List[_Slot] = []
 
     def launch(self, g: GraphState) -> "_Pending":
         """Enqueue one event on the current stream; nothing waits."""

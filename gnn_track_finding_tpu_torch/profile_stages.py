@@ -51,7 +51,7 @@ and no device field is filled.
 
 prints the table on stdout; stderr ends with one JSON record (the card's
 name and power limit, every row).  --batch B adds the same rows on B
-copies of the event rotated about the beam axis (bench.load_rotated) and
+copies of the event rotated about the beam axis (testing.load_event) and
 stacked as their union (graph/state.stack_events), beside the single
 event; --trace DIR writes a Chrome trace of one replay of the event's
 captured schedule and its readback, the driver's spans among its ranges
@@ -66,15 +66,17 @@ import contextlib
 import dataclasses
 import functools
 import json
+import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from gnn_track_finding_tpu_torch import _build, bench
+from gnn_track_finding_tpu_torch import _build, testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph import cca
 from gnn_track_finding_tpu_torch.graph.state import (GraphState,
@@ -94,8 +96,10 @@ L2_FLUSH_BYTES = 128 * 2**20
 SPIN_CYCLES = 2_000_000
 LAUNCH_NODES = 1000
 KERNELS = ("gmr_cluster", "distinct_counts", "kf_fit")
-EVENTS = {"full": bench.FULL_EVENT,
-          "volume7": bench.FULL_EVENT.with_name("event_fafb3309e4598e9b.npz")}
+CACHE = Path(__file__).resolve().parents[1] / ".event_cache"
+EVENTS = {"full": CACHE / "event_7bba1cb4ae95bca1.npz",
+          "volume7": CACHE / "event_fafb3309e4598e9b.npz"}
+CFG = PipelineConfig(min_volume=7, max_volume=14)   # the full event's
 
 
 # ------------------------------------------------------------ byte count
@@ -526,6 +530,14 @@ def table(prof: Profile, label: str) -> List[str]:
 
 # ------------------------------------------------------------------- main
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description=__doc__,
@@ -547,20 +559,21 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     dtype = getattr(torch, args.dtype)
-    card = bench.card_name()
+    card = card_name()
     path = EVENTS[args.event]
-    cfg = bench.CFG if args.event == "full" else PipelineConfig(
+    cfg = CFG if args.event == "full" else PipelineConfig(
         min_volume=7, max_volume=7)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
           f"{args.event} event, {args.dtype}", flush=True)
-    g = bench.load_event(path, cfg, device=dev, dtype=dtype)
+    g = testing.load_event(path, cfg, device=dev, dtype=dtype)
     rec = {"card": card, "dtype": args.dtype, "event": args.event}
     runs = {"single event": g}
     if args.batch:
         runs[f"{args.batch} rotated copies stacked"] = stack_events(
-            [bench.load_rotated(path, cfg, c, args.batch, device=dev,
-                                dtype=dtype) for c in range(args.batch)])
+            [testing.load_event(path, cfg, device=dev, dtype=dtype, copy=c,
+                                copies=args.batch)
+             for c in range(args.batch)])
     for label, gg in runs.items():
         t0 = time.perf_counter()
         prof = profile(gg, cfg)

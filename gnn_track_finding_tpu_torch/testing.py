@@ -1,29 +1,40 @@
 """Test support only: synthetic inputs that hold the edge cases of the
-kernels' layouts, the host-read audit of the captured programs, and the
-rank workers of the edge-partitioned tests.
+kernels' layouts, the host-read audit of the captured programs, the event
+loader (`load_event`, rotated copies included), the kernel gate (both
+kernels against their plain versions on an event's own inputs, and its
+accepted counts), and the rank workers of the edge-partitioned tests.
 
 Nothing in the pipeline imports this module.  The CPU tests
 (tests/test_torch_kernels.py, tests/test_torch_fit_kernel.py,
-tests/test_torch_parallel.py), the card-only
-tests (tests/test_torch_gpu.py) and chip_smoke.py do: the inputs are made
-with numpy from a seed, so each hands the same rows to a kernel and to its
-plain version.  It lives in the package so that chip_smoke.py, run from a
-checkout, reaches it by the package's import path, and so that a rank
-process started with `spawn` imports the workers (`spawn_ranks`) without
-the test module, which imports JAX.
+tests/test_torch_gate.py, tests/test_torch_parallel.py), the card-only
+tests (tests/test_torch_gpu.py), chip_smoke.py and profile_stages do: the
+inputs are made with numpy from a seed, so each hands the same rows to a
+kernel and to its plain version.  It lives in the package so that
+chip_smoke.py, run from a checkout, reaches it by the package's import
+path, and so that a rank process started with `spawn` imports the workers
+(`spawn_ranks`) without the test module, which imports JAX.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from gnn_track_finding_tpu_torch.config import PipelineConfig
+from gnn_track_finding_tpu_torch.data import event_cache
+from gnn_track_finding_tpu_torch.graph.build import build_graph_state
+from gnn_track_finding_tpu_torch.graph.state import GraphState
+from gnn_track_finding_tpu_torch.models import pipeline
+from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
+                                             distinct_kernel, extrapolate,
+                                             priors)
 from gnn_track_finding_tpu_torch.ops.cluster_kernel import SlotStates
 
 # row kinds of cluster_rows, cycled over the rows
@@ -216,7 +227,6 @@ def extraction_rows(g, cfg) -> list:
     """The compacted rows (coords, valid, n_hits) that each extraction of
     an eager run of the schedule on g hands extract.track_fit, cloned: the
     inputs of the track-fit kernel at the main path's shapes."""
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import extract
     entry, seen = extract.track_fit, []
 
@@ -259,6 +269,138 @@ class HostReads(TorchDispatchMode):
         if name.startswith(self.NAMES) or "unique" in name or bool_index:
             self.reads.append(name)
         return func(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the event loader and the kernel gate
+
+FLIP_SHARE = 0.06   # float32: found-flag flips allowed, as a share of rows
+
+
+class GateError(RuntimeError):
+    """A kernel disagrees with its plain version, or a count is off."""
+
+
+def load_event(path, cfg: PipelineConfig, *, device, dtype, copy: int = 0,
+               copies: int = 1) -> GraphState:
+    """The event's GraphState from its cache, with the cached set()-order
+    mirror and components.  With `copy`, every hit rotated about the beam
+    axis by copy * 2 pi / copies in (x, y) (r as cached): the same graph,
+    other floats, so that `copies` such events make a batch of distinct
+    events of one pad bucket; copy 0 is the event itself."""
+    xyzr, vivl, tp, pairs, _, pre = event_cache.load_npz(path)
+    if copy:
+        phi = 2.0 * math.pi * copy / copies
+        c, s = math.cos(phi), math.sin(phi)
+        xyzr = xyzr.astype(np.float64, copy=True)
+        x, y = xyzr[:, 0].copy(), xyzr[:, 1].copy()
+        xyzr[:, 0] = c * x - s * y
+        xyzr[:, 1] = s * x + c * y
+    return build_graph_state(xyzr, vivl, tp, pairs, cfg, device=device,
+                             dtype=dtype, mirror=pre["mirror"],
+                             component=pre["component"])
+
+
+def per_iteration(out: pipeline.PipelineResult, cfg: PipelineConfig) -> list:
+    return [sum(1 for c in out.candidates if c.iteration == i)
+            for i in range(1, cfg.num_iterations + 1)]
+
+
+def _close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float,
+           equal_nan: bool) -> bool:
+    return bool(torch.isclose(a, b, rtol=rtol, atol=atol,
+                              equal_nan=equal_nan).all())
+
+
+def compare_cluster(inputs: tuple, *, chi2_thr: float, cfg: PipelineConfig,
+                    kernel=cluster_kernel.cluster_core,
+                    plain=cluster_kernel.cluster_core_plain,
+                    require_merged: bool = True,
+                    label: str = "gmr_cluster") -> dict:
+    """`kernel` against `plain` on one round's compacted rows (inputs:
+    states, tab, node_xyzr, klthr and optionally the live count; rows past
+    it come out not found from both): bitwise at float64; at float32
+    found-flag flips under FLIP_SHARE of the rows, and the merged values
+    of the rows both find within rtol 1e-5 (NaN equal to NaN only at
+    float64).  -> the agreement; raises
+    GateError."""
+    want = plain(*inputs, chi2_thr=chi2_thr, cfg=cfg)
+    got = kernel(*inputs, chi2_thr=chi2_thr, cfg=cfg)
+    rows = inputs[1].shape[0]
+    both = got[0] & want[0]
+    live = inputs[4] if len(inputs) > 4 and inputs[4] is not None else rows
+    stats = {"rows": rows, "live": int(live), "found": int(got[0].sum()),
+             "found_plain": int(want[0].sum()),
+             "flips": int((got[0] != want[0]).sum()),
+             "deact_diffs": int((got[4] != want[4]).sum()),
+             "max_abs_diff": max(
+                 float((a[both] - b[both]).abs().nan_to_num().max())
+                 if both.any() else 0.0
+                 for a, b in zip(got[1:4], want[1:4]))}
+    if require_merged and not both.any():
+        raise GateError(f"{label}: no row merged; {stats}")
+    if inputs[2].dtype == torch.float64:
+        ok = (stats["flips"] == 0 and stats["deact_diffs"] == 0
+              and all(_close(a, b, 0.0, 0.0, True)
+                      for a, b in zip(got[1:4], want[1:4])))
+        bar = "bitwise at float64"
+    else:
+        ok = (stats["flips"] < FLIP_SHARE * max(rows, 1)
+              and all(_close(a[both], b[both], 1e-5, 1e-7, False)
+                      for a, b in zip(got[1:4], want[1:4])))
+        bar = (f"float32: flips under {FLIP_SHARE:.0%} of the rows, merged "
+               "values within rtol 1e-5")
+    if not ok:
+        raise GateError(f"{label} disagrees with its plain version ({bar}): "
+                        f"{stats}")
+    return stats
+
+
+def _distinct_plain(ok: torch.Tensor, x: torch.Tensor,
+                    node_x: torch.Tensor) -> torch.Tensor:
+    return distinct_kernel.distinct_counts_plain(ok, x, x < node_x[:, None],
+                                                 x.dtype)
+
+
+def compare_distinct(ok: torch.Tensor, x: torch.Tensor, node_x: torch.Tensor,
+                     *, kernel=distinct_kernel.distinct_counts,
+                     plain=_distinct_plain) -> dict:
+    """`kernel` against `plain` on one (N, K) reweight table: exact.
+    -> the agreement; raises GateError."""
+    got = kernel(ok, x, node_x)
+    want = plain(ok, x, node_x)
+    stats = {"rows": ok.shape[0], "ok_slots": int(ok.sum()),
+             "count_sum": int(want.sum()),
+             "diffs": int((got != want).sum())}
+    if not torch.equal(got, want):
+        raise GateError(f"distinct_counts disagrees with its plain version: "
+                        f"{stats}")
+    return stats
+
+
+def kernel_gate(g: GraphState, cfg: PipelineConfig,
+                expected: List[int] | None = None) -> dict:
+    """Both kernels against their plain versions on g's own inputs (the
+    root bench.py:133-160 only logs them): gmr_cluster on the seed round's
+    rows of the prepared state, distinct_counts on iteration 2's first
+    reweight table; then run_pipeline_fast's accepted counts per
+    iteration against `expected`, or, when None, against
+    run_pipeline_eager's.  -> the agreement; raises GateError."""
+    prepared = pipeline.prepare(g, cfg)
+    x = clustering.core_inputs(prepared, cfg, False)
+    cluster = compare_cluster(
+        (x.states, x.tab, x.node_xyzr, x.klthr, x.count), chi2_thr=x.chi2_thr,
+        cfg=cfg, label="gmr_cluster, seed round")
+    g2, _ = pipeline.iteration(prepared, cfg, 1)
+    distinct = compare_distinct(
+        *priors.distinct_inputs(extrapolate.message_passing(g2, cfg)))
+    counts = per_iteration(pipeline.run_pipeline_fast(g, cfg), cfg)
+    want = expected if expected is not None else per_iteration(
+        pipeline.run_pipeline_eager(g, cfg), cfg)
+    if counts != list(want):
+        raise GateError(f"accepted counts {counts}, expected {list(want)}")
+    return {"gmr_cluster": cluster, "distinct_counts": distinct,
+            "accepted": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +560,6 @@ def _job_stages(ctx: RankContext, staged: dict, prepared: dict, meta: dict,
     stage with and without routing (staged), each of the three iterations
     in turn (prepared), and the census of the routed stage and of
     iterations 1 and 2; states gathered whole."""
-    from gnn_track_finding_tpu_torch.config import PipelineConfig
     from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
@@ -442,13 +583,9 @@ def _graph(ctx: RankContext, event: dict, dtype=torch.float64):
     """(GraphState, config) of a toy event {"toy": (tracks, seed), "cfg":
     {...}, optionally "gen": {generate_event's other arguments}}, an event
     cache {"npz": path}, optionally {"copy": (b, copies)}, the cache's
-    event rotated by b * 2 pi / copies (bench.load_rotated), or a stack
-    of such events {"stack": [...]} (graph/state.stack_events; the first
-    event's config), on the rank's device."""
-    from gnn_track_finding_tpu_torch.bench import load_rotated
-    from gnn_track_finding_tpu_torch.config import PipelineConfig
-    from gnn_track_finding_tpu_torch.data.event_cache import load_npz
-    from gnn_track_finding_tpu_torch.graph.build import build_graph_state
+    event rotated by b * 2 pi / copies (load_event), or a stack of such
+    events {"stack": [...]} (graph/state.stack_events; the first event's
+    config), on the rank's device."""
     from gnn_track_finding_tpu_torch.graph.state import stack_events
     from gnn_track_finding_tpu_torch.models import toymc
     if "stack" in event:
@@ -461,15 +598,12 @@ def _graph(ctx: RankContext, event: dict, dtype=torch.float64):
         cfg = PipelineConfig(**event["cfg"])
         return build_graph_state(ev.xyzr, ev.vivl, ev.truth, ev.edge_pairs,
                                  cfg, device=ctx.device, dtype=dtype), cfg
-    xyzr, vivl, tp, pairs, _, pre = load_npz(event["npz"])
+    vivl = event_cache.load_npz(event["npz"])[1]
     cfg = PipelineConfig(min_volume=int(vivl[:, 0].min()),
                          max_volume=int(vivl[:, 0].max()))
-    if "copy" in event:
-        return load_rotated(event["npz"], cfg, *event["copy"],
-                            device=ctx.device, dtype=dtype), cfg
-    return build_graph_state(xyzr, vivl, tp, pairs, cfg, device=ctx.device,
-                             dtype=dtype, mirror=pre["mirror"],
-                             component=pre["component"]), cfg
+    copy, copies = event.get("copy", (0, 1))
+    return load_event(event["npz"], cfg, device=ctx.device, dtype=dtype,
+                      copy=copy, copies=copies), cfg
 
 
 def _sync(ctx: RankContext) -> None:
@@ -490,7 +624,6 @@ def _event_numpy(res) -> dict:
 def _schedule_numpy(res, group):
     """A ScheduleResults as numpy, the graph gathered whole; a stack's as
     a list of such dicts, one per event (pipeline.split_events)."""
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     whole = res._replace(graph=edge_shard.gather_graph(res.graph, group))
     per = [_event_numpy(r) for r in pipeline.split_events(whole)]
@@ -530,7 +663,6 @@ def _job_schedule(ctx: RankContext, event: dict, reps: int = 1,
     schedule's bit for bit."""
     import torch.distributed as dist
 
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
@@ -572,10 +704,6 @@ def _owner_kernel_checks(g, cfg, group, r):
     (verdicts, the inputs as numpy: each round's packed (rows, 29) state
     buffer, tab, node_xyzr, klthr and chi2_thr; the distinct counts' ok,
     x and node_x)."""
-    from gnn_track_finding_tpu_torch.models import pipeline
-    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
-                                                 distinct_kernel, extrapolate,
-                                                 priors)
 
     inputs = {}
 
@@ -626,8 +754,7 @@ def _owner_rows_check(g, cfg, use_updated: bool, group, r) -> dict:
     """The static owner table of a clustering round against the exact
     compaction of the same gated rows (nonzero, read on the host): ids,
     count, rows and the plain core on each."""
-    from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
-                                                 collect)
+    from gnn_track_finding_tpu_torch.ops import collect
     x = clustering.owner_core_inputs(g, cfg, use_updated, group, r)
     tab, gate, states, _ = clustering.owner_table(g, cfg, use_updated,
                                                   group, r)
@@ -659,7 +786,6 @@ def _job_static_parts(ctx: RankContext, event: dict) -> dict:
     (_owner_rows_check); at each extraction, fixed-round FastSV against
     the adaptive loop over the group (labels, rounds, convergence)."""
     from gnn_track_finding_tpu_torch.graph import cca
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
     g_full, cfg = _graph(ctx, event)
@@ -691,7 +817,6 @@ def _job_fallback(ctx: RankContext, event: dict, limit: str) -> dict:
     per event."""
     from gnn_track_finding_tpu_torch.graph import cca
     from gnn_track_finding_tpu_torch.graph.state import unstack_events
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import extract
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
@@ -760,7 +885,6 @@ def _job_captured(ctx: RankContext, event: dict, reps: int = 5,
     import torch.distributed as dist
 
     from gnn_track_finding_tpu_torch.graph.state import unstack_events
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     group = edge_shard.edge_group()
@@ -845,7 +969,6 @@ def _job_batched(ctx: RankContext, events: list, shape, reps: int = 0,
     import torch.distributed as dist
 
     from gnn_track_finding_tpu_torch.graph.state import stack_events
-    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.ops import collect
     from gnn_track_finding_tpu_torch.parallel import edge_shard
     from gnn_track_finding_tpu_torch.parallel import mesh as pmesh

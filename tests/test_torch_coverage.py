@@ -75,10 +75,11 @@ TOOLS = {
     "bench_cold_stream.py": "to port: cold streams of path-distinct event "
                             "copies through the prefetcher, clean and "
                             "bug_compat",
-    "bench_pileup.py": "gnn_track_finding_tpu_torch/bench.py",
-    "bench_prefetch.py": "to port: serial against prefetched streams, "
-                         "run_pipeline_fast against run_pipeline, the depth "
-                         "and worker knobs",
+    "bench_pileup.py": "the v7.device_batch32 cell times stacked events, "
+                       "and tests/test_torch_batched.py holds each to its "
+                       "single run",
+    "bench_prefetch.py": "the benchmark's files driver times the "
+                         "prefetched stream, ingest included",
     "capture_trace.py": PROFILER,
     "census_full_schedule.py": "to port: the sharded schedule's event-scale "
                                "bit-match and every iteration's collective "

@@ -8,10 +8,10 @@ kernel under the runner's LUT thresholds, a calibrated toy run against the
 same run on the CPU), and the edge-partitioned schedule on the card (2
 gloo ranks on one card, 1 NCCL rank, the clustering kernel on routed
 owner rows, the NCCL rank's schedule captured as one CUDA graph and
-replayed by run_sharded and run_batched), and the bench's gate, captured
-message-passing loop and schedule timing on volume 7, B events of one
-pad bucket as one captured program (parallel/mesh.stack_events), and the
-stage and part profiler on volume 7 (profile_stages.profile).
+replayed by run_sharded and run_batched), and the kernel gate
+(testing.kernel_gate) on volume 7, B events of one pad bucket as one
+captured program (parallel/mesh.stack_events), and the stage and part
+profiler on volume 7 (profile_stages.profile).
 These tests need a CUDA device and skip without one; they import no JAX,
 so they run on a machine that has only torch:
 
@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnn_track_finding_tpu_torch import bench, testing
+from gnn_track_finding_tpu_torch import testing
 from gnn_track_finding_tpu_torch.calib import lut, training_data
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
@@ -234,8 +234,9 @@ def extraction_rows():
                        ("vol7x32", None)):
         if path is None:
             g = mesh.stack_events([
-                bench.load_rotated(VOL7_NPZ, CFG, b, 32, device=cuda,
-                                   dtype=torch.float64) for b in range(32)])
+                testing.load_event(VOL7_NPZ, CFG, device=cuda,
+                                   dtype=torch.float64, copy=b, copies=32)
+                for b in range(32)])
         else:
             xyzr, vivl, tp, pairs, _, pre = load_npz(path)
             g = build_graph_state(xyzr, vivl, tp, pairs, cfgs[name],
@@ -292,8 +293,8 @@ def test_fit_kernel_takes_the_place_of_the_fit_nodes(cuda):
     assert prog.capture.graph_nodes <= 3000, prog.capture.graph_nodes
     pipeline.clear_programs()
     stack = mesh.stack_events([
-        bench.load_rotated(VOL7_NPZ, CFG, b, 32, device=cuda,
-                           dtype=torch.float64) for b in range(32)])
+        testing.load_event(VOL7_NPZ, CFG, device=cuda, dtype=torch.float64,
+                           copy=b, copies=32) for b in range(32)])
     prog = pipeline.captured_program(stack, CFG)
     assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
                                     "kf_fit": 3}
@@ -302,8 +303,7 @@ def test_fit_kernel_takes_the_place_of_the_fit_nodes(cuda):
 
 @pytest.mark.gpu
 def test_volume7_counts_through_the_kernels(cuda):
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
     out = pipeline.run_pipeline_fast(_volume7(cuda, torch.float64), CFG)
     per_it = [sum(1 for c in out.candidates if c.iteration == i)
               for i in (1, 2, 3)]
@@ -325,8 +325,7 @@ def _volume7_with_tracker(device):
 @pytest.mark.gpu
 def test_host_driver_with_leak_replay_through_the_kernels(cuda):
     g, host = _volume7_with_tracker(cuda)
-    cluster_kernel.cluster_core.launches = 0
-    distinct_kernel.distinct_counts.launches = 0
+    pipeline.reset_kernel_launches()
     out = pipeline.run_pipeline(g, CFG, tracker=host.tracker)
     per_it = [sum(1 for c in out.candidates if c.iteration == i)
               for i in (1, 2, 3)]
@@ -676,8 +675,9 @@ def test_batched_replay_equals_eager_and_single_replays(cuda, event):
                   for s, t in ((3, 40), (5, 45), (7, 42))]
     else:
         cfg = CFG
-        graphs = [bench.load_rotated(VOL7_NPZ, cfg, b, 4, device=cuda,
-                                     dtype=torch.float64) for b in range(4)]
+        graphs = [testing.load_event(VOL7_NPZ, cfg, device=cuda,
+                                     dtype=torch.float64, copy=b, copies=4)
+                  for b in range(4)]
     before = pipeline.fallbacks
     singles = [pipeline.run_pipeline_fast(g, cfg) for g in graphs]
     first = pipeline.run_pipeline_batched(graphs, cfg)
@@ -744,33 +744,13 @@ def test_cluster_kernel_reads_the_row_count_on_the_device(cuda, source):
 
 
 @pytest.mark.gpu
-def test_bench_on_the_card(cuda):
-    """The bench's pieces on volume 7 at float64: the kernel gate passes
-    with the reference's counts; the captured message-passing loop equals
-    as many eager extrapolation_stage calls bitwise, with distinct_counts
-    in its graph; the captured schedule accepts 3 x the counts."""
-    from gnn_track_finding_tpu_torch.graph.state import tensor_fields
+def test_kernel_gate_on_the_card(cuda):
+    """The kernel gate on volume 7 at float64: both kernels bitwise their
+    plain versions on the event's own inputs, and the reference's
+    counts."""
     g = _volume7(cuda, torch.float64)
-    gate = bench.kernel_gate(g, CFG, [1055, 110, 2])
+    gate = testing.kernel_gate(g, CFG, [1055, 110, 2])
     assert gate["gmr_cluster"]["flips"] == 0
-    g1 = bench.clustered(g, CFG)
-    stage = bench.CapturedStage(g1, CFG)
-    assert stage.kernel_launches == {"gmr_cluster": 0, "distinct_counts": 2,
-                                     "kf_fit": 0}
-    looped = bench.message_passing_loop(g1, CFG, 5, stage)
-    eager = g1
-    for _ in range(5):
-        eager = pipeline.extrapolation_stage(eager, CFG)
-    bits = {torch.float64: torch.int64}
-    for name in tensor_fields():
-        a, b = getattr(looped.final, name), getattr(eager, name)
-        if a.dtype in bits:
-            a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
-        assert torch.equal(a, b), name
-    assert looped.checksum == int(eager.active.sum())
-    full = bench.full_pipeline_seconds(g, CFG, n_full=3)
-    assert full.accepted == 3 * sum(gate["accepted"])
-    assert full.counts == [1055, 110, 2] and full.seconds > 0
     pipeline.clear_programs()
 
 

@@ -30,7 +30,7 @@ from gnn_track_finding_tpu.graph import cca as jax_cca
 from gnn_track_finding_tpu.graph.state import GraphState as JaxState
 from gnn_track_finding_tpu.ops import extract as jax_extract
 
-from gnn_track_finding_tpu_torch import bench, profile_stages
+from gnn_track_finding_tpu_torch import profile_stages, testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph import cca
 from gnn_track_finding_tpu_torch.graph.build import build_graph_state
@@ -111,8 +111,8 @@ def staged(request):
         g, cfg, jcfg = _toy(11), CFG, JCFG
     else:
         path = REPO / ".event_cache" / "event_fafb3309e4598e9b.npz"
-        g, cfg, jcfg = (bench.load_event(path, VOL7_CFG, device="cpu",
-                                         dtype=torch.float64), VOL7_CFG,
+        g, cfg, jcfg = (testing.load_event(path, VOL7_CFG, device="cpu",
+                                           dtype=torch.float64), VOL7_CFG,
                         JVOL7_CFG)
     g = pipeline.cluster_stage(pipeline.prepare(g, cfg), cfg, False)
     return g, cfg, jcfg

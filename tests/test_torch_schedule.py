@@ -22,7 +22,7 @@ from gnn_track_finding_tpu.graph.build import build_graph_state as jax_build
 from gnn_track_finding_tpu.models import pipeline as jax_pipeline
 from gnn_track_finding_tpu.models import toymc
 
-from gnn_track_finding_tpu_torch import bench, testing
+from gnn_track_finding_tpu_torch import testing
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.data.event_cache import load_npz
 from gnn_track_finding_tpu_torch.graph import cca
@@ -107,19 +107,6 @@ def test_stacked_events_match_jax_per_event():
         assert not testing.bitwise_fields(res, single)
         assert (res.graph.n_nodes, res.graph.n_edges) == (g.n_nodes,
                                                           g.n_edges)
-
-
-def test_bench_full_pipeline_accepted_sum():
-    """The bench's full-schedule timing (eager on CPU tensors) accepts, over
-    its 3 schedules, 3 x the candidates of JAX's packed schedule."""
-    jg, g = _toy(7)
-    packed = jax_pipeline.full_pipeline_packed(
-        jax_pipeline._normalize_static(jg), JCFG)[1]
-    counts = jax_pipeline.unpack_results(np.asarray(packed),
-                                         JCFG.num_iterations)[0]
-    res = bench.full_pipeline_seconds(g, CFG, n_full=3)
-    assert res.accepted == 3 * int(counts.sum()) > 0
-    assert res.counts == counts.tolist()
 
 
 def test_full_pipeline_stacks_every_extraction():
