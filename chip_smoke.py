@@ -2,7 +2,7 @@
 
 Drives the port's production driver (`run_pipeline_fast`, `stream_pipeline`)
 on the committed TrackML event caches, captured as one CUDA graph per pad
-bucket, and checks the three hand-written CUDA kernels against their
+bucket, and checks the four hand-written CUDA kernels against their
 plain PyTorch versions on the card:
 
   1. device: a CUDA device is required; prints its name and power limit;
@@ -130,8 +130,8 @@ program run op by op), so their rows stay comparable with earlier runs:
      b * 2 pi / 4): each event's candidates, p-values, FastSV rounds and
      final state bitwise its own single-event replay and the batched
      eager run (first call and a replay), copy 0 at the reference's
-     counts, 2 gmr_cluster, 3 distinct_counts and 3 kf_fit launches per
-     replay, the kernels launched in the first call (counters zeroed just
+     counts, 2 gmr_cluster, 3 distinct_counts, 3 kf_fit and 3 row_merge
+     launches per replay, the kernels launched in the first call (counters zeroed just
      before it),
      the stack, replay and readback under
      torch.cuda.set_sync_debug_mode("error"); at float32 each event's
@@ -151,7 +151,8 @@ program run op by op), so their rows stay comparable with earlier runs:
      union, edge-partitioned as one program per rank), on rotated copies
      of the full event.  2 gloo ranks on cuda:0 run run_batched on a
      (1, 2) mesh over 2 copies: one program per rank (64 collectives, 2
-     gmr_cluster, 3 distinct_counts and 3 kf_fit launches per rank, not
+     gmr_cluster, 3 distinct_counts, 3 kf_fit and 3 row_merge launches per
+     rank, not
      per event), path "eager", each event's candidates exact against its own
      single-device replay and its gathered state within the sharded bars
      (bitwise but grad_stats' variances, to 1e-12 of their second
@@ -177,8 +178,8 @@ program run op by op), so their rows stay comparable with earlier runs:
      launches, byte floor, launch floor and the rest of each stage, one
      FastSV round, and the whole schedule's replay.  It fails if a
      captured part differs from its eager output at float64, if the leaf
-     rows do not hold 2 gmr_cluster, 3 distinct_counts and 3 kf_fit
-     launches, if the stage rows' kernel time sums to more than 25% off one replay's (their
+     rows do not hold 2 gmr_cluster, 3 distinct_counts, 3 kf_fit and 3
+     row_merge launches, if the stage rows' kernel time sums to more than 25% off one replay's (their
      CUDA-event times are printed beside), or if FastSV needed more than
      R_CAP rounds.  Its summary is printed as one JSON line,
      {"stage_profile": ...};
@@ -189,7 +190,15 @@ program run op by op), so their rows stay comparable with earlier runs:
      rows).  Chi2 sums and p-values bitwise at float64 and float32 in
      both bug_compat modes, one launch per call; the kernel's device
      time (L2 flushed and warm), the plain loop's (captured) and the
-     bound from the bytes and operations those rows need.
+     bound from the bytes and operations those rows need;
+ 17. the row-merge kernel (csrc/row_merge.cu) against its plain version
+     (extract._proximity_merge then extract._compact_rows) on the
+     candidate rows each of the three extractions hands it, as eager
+     runs record them: the full event (14,400 rows) and volume 7 in 32
+     rotated copies stacked (98,368 rows).  Every output bitwise at
+     float64 and float32, one launch per call; the kernel's device time
+     (L2 flushed and warm), the plain ops' (captured) and the bound from
+     the bytes those rows need.
 
 Every phase raises on failure, so the script exits non-zero.  The line
 before the last is the kernels' JSON record (with bound_ms and bound_by);
@@ -243,6 +252,7 @@ TRAINING_BLOCK, CPU_TRAINING_BLOCK = 2048, 256
 CLUSTER_SOURCE = "gnn_track_finding_tpu_torch/csrc/gmr_cluster.cu"
 DISTINCT_SOURCE = "gnn_track_finding_tpu_torch/csrc/distinct_counts.cu"
 FIT_SOURCE = "gnn_track_finding_tpu_torch/csrc/kf_fit.cu"
+MERGE_SOURCE = "gnn_track_finding_tpu_torch/csrc/row_merge.cu"
 CLUSTER_REPLACES = "gnn_track_finding_tpu/ops/pallas_cluster.py:118"
 DISTINCT_REPLACES = "gnn_track_finding_tpu/ops/pallas_distinct.py:30"
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s,
@@ -351,82 +361,189 @@ def fit_bound(coords, n_hits) -> dict:
     return bound(float(n_bytes), float(n_ops), coords.dtype)
 
 
-def fit_phase(card, cuda, graph) -> dict:
-    """The track-fit kernel (csrc/kf_fit.cu) against its plain version
-    (extract._kf_chi2 of extract._rotate_tracks; extract.track_fit_plain
-    for the p-values) on the rows each of the three extractions hands it:
-    the full event and volume 7 in 32 rotated copies stacked, as their
-    eager schedules record them (testing.extraction_rows).  At float64
-    and float32, in both bug_compat modes: chi2 sums and p-values bitwise,
-    and one launch per call.  At the configured mode: the kernel's device
-    time (L2 flushed and warm), the plain loop's (captured, L2 flushed)
-    and the bound (fit_bound).  Returns the phase's record."""
+def compare_outputs(names, got, want) -> tuple:
+    """The names of the outputs that are not bitwise equal, the largest
+    |got - want| over the float outputs (0 where both are NaN, inf where
+    one is) and the count of entries that differ over the others."""
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
+    differ, err, wrong = [], 0.0, 0
+    for k, a, b in zip(names, got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            differ.append(k)
+        elif a.is_floating_point():
+            if a.numel():
+                d = torch.where(a.isnan() & b.isnan(), 0.0, (a - b).abs())
+                err = max(err, float(torch.nan_to_num(
+                    d, nan=float("inf")).max()))
+            if not torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype])):
+                differ.append(k)
+        else:
+            n = int((a != b).sum())
+            wrong += n
+            if n:
+                differ.append(k)
+    return differ, err, wrong
+
+
+def rows_phase(card, cuda, graph, kernel, recorder, case) -> dict:
+    """A row kernel against its plain version on the inputs each of the
+    three extractions hands it: the full event and volume 7 in 32 rotated
+    copies stacked, as their eager schedules record them (recorder, one
+    of testing's).  For every recorded call at float64 and float32,
+    case(call, cfg, dtype) gives the checks, each (the kernel's entry,
+    its plain version, the kernel's launches in the entry), run bitwise
+    output for output (compare_outputs), the calls timed on the device
+    (L2 flushed; the kernel's "ms" also warm), the bound and what the
+    rows hold.  Returns {"max_abs_err", "mismatches", "calls"}."""
     from gnn_track_finding_tpu_torch import testing
-    from gnn_track_finding_tpu_torch.ops import extract, fit_kernel
+    from gnn_track_finding_tpu_torch.models import pipeline
     from gnn_track_finding_tpu_torch.parallel import mesh
     print(f"card: {card}")
-    bits = {torch.float64: torch.int64, torch.float32: torch.int32}
     g, cfg = graph(FULL, torch.float64)
     cfg7 = graph(VOL7, torch.float64)[1]
     stack = mesh.stack_events([
         testing.load_event(VOL7, cfg7, device=cuda, dtype=torch.float64,
                            copy=b, copies=32) for b in range(32)])
-    sets = {"full event": (testing.extraction_rows(g, cfg), cfg),
-            "volume 7 x 32": (testing.extraction_rows(stack, cfg7), cfg7)}
+    sets = {"full event": (recorder(g, cfg), cfg),
+            "volume 7 x 32": (recorder(stack, cfg7), cfg7)}
     del g, stack
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=cuda)
-    record = {"max_abs_err": 0.0, "calls": {}}
-    for label, (rows, cfg) in sets.items():
-        check(len(rows) == 3, f"{label}: {len(rows)} extractions recorded")
-        for it, (coords, valid, n_hits) in enumerate(rows, 1):
+    record = {"max_abs_err": 0.0, "mismatches": 0, "calls": {}}
+    for label, (calls, cfg) in sets.items():
+        check(len(calls) == 3, f"{label}: {len(calls)} extractions recorded")
+        for it, call in enumerate(calls, 1):
             for dtype in (torch.float64, torch.float32):
-                name = str(dtype).split(".")[1]
-                cc = coords.to(dtype)
-                for bug in (True, False):
-                    c = dataclasses.replace(cfg, bug_compat=bug)
-                    before = fit_kernel.chi2_sums.launches
-                    got = (fit_kernel.chi2_sums(cc, valid, n_hits, c)
-                           + extract.track_fit(cc, valid, n_hits, c))
-                    check(fit_kernel.chi2_sums.launches == before + 2,
-                          f"{label} extraction {it}: kf_fit launches "
-                          f"{fit_kernel.chi2_sums.launches - before} for "
-                          "chi2_sums and track_fit, not 2")
-                    want = (extract._kf_chi2(extract._rotate_tracks(
-                        cc, valid, n_hits, c), n_hits, c)
-                        + extract.track_fit_plain(cc, valid, n_hits, c))
-                    differ = [k for k, a, b in zip(
-                        ("chi_xy", "chi_rz", "pval_xy", "pval_zr"), got,
-                        want) if not torch.equal(a.view(bits[dtype]),
-                                                 b.view(bits[dtype]))]
-                    err = max(float(torch.where(a.isnan() & b.isnan(), 0.0,
-                                                a - b).abs().max())
-                              for a, b in zip(got, want))
+                where = f"{label} extraction {it} {str(dtype).split('.')[1]}"
+                c = case(call, cfg, dtype)
+                for mode, (entry, plain, launches) in c["checks"].items():
+                    before = pipeline.kernel_launches()[kernel]
+                    got = entry()
+                    ran = pipeline.kernel_launches()[kernel] - before
+                    check(ran == launches, f"{where}{mode}: {kernel} "
+                          f"launches {ran}, not {launches}")
+                    differ, err, wrong = compare_outputs(c["outputs"], got,
+                                                         plain())
                     record["max_abs_err"] = max(record["max_abs_err"], err)
-                    check(not differ, f"kf_fit differs from its plain "
-                          f"version: {label} extraction {it} {name} "
-                          f"bug_compat={bug}: {differ}, max |diff| {err}")
-                run = lambda: fit_kernel.chi2_sums(cc, valid, n_hits, cfg)
-                plain = lambda: extract._kf_chi2(extract._rotate_tracks(
-                    cc, valid, n_hits, cfg), n_hits, cfg)
-                rec = {"rows": coords.shape[0],
-                       "fitted_rows": int((n_hits >= 2).sum()),
-                       "ms": device_ms(run, flush=flush),
-                       "ms_warm_l2": device_ms(run),
-                       "plain_ms": device_ms(plain, reps=2, warmup=1,
-                                             flush=flush),
-                       **fit_bound(cc, n_hits)}
+                    record["mismatches"] += wrong
+                    check(not differ, f"{kernel} differs from its plain "
+                          f"version: {where}{mode}: {differ}, max |diff| "
+                          f"{err}, {wrong} entries differ")
+                rec = {**c["counts"],
+                       **{k: device_ms(fn, reps=reps, warmup=1, flush=flush)
+                          for k, (fn, reps) in c["timed"].items()},
+                       "ms_warm_l2": device_ms(c["timed"]["ms"][0]),
+                       **c["bound"]}
                 rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-                record["calls"][f"{label} extraction {it} {name}"] = rec
-                print(f"kf_fit, {label} extraction {it} {name}: "
-                      f"{rec['fitted_rows']} of {rec['rows']} rows fitted; "
-                      f"chi2 sums and p-values bitwise the plain version in "
-                      f"both bug_compat modes; kernel {rec['ms']:.4f} ms "
-                      f"(L2 flushed), {rec['ms_warm_l2']:.4f} ms (warm), "
-                      f"plain {rec['plain_ms']:.4f} ms (captured); bound "
-                      f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} "
-                      f"({rec['bytes']} bytes, {rec['ops']} operations), "
-                      f"share {rec['share_of_bound']:.4f}", flush=True)
+                record["calls"][where] = rec
+                print(f"{kernel}, {where}: {c['rows']}; every output bitwise "
+                      f"the plain version{c['modes']}; "
+                      + ", ".join(f"{k} {rec[k]:.4f}"
+                                  for k in (*c["timed"], "ms_warm_l2"))
+                      + f" ms; bound {rec['bound_ms']:.6f} ms by "
+                      f"{rec['bound_by']} ({rec['bytes']} bytes, "
+                      f"{rec['ops']} operations), share "
+                      f"{rec['share_of_bound']:.4f}", flush=True)
     return record
+
+
+def fit_phase(card, cuda, graph) -> dict:
+    """The track-fit kernel (csrc/kf_fit.cu) against its plain version
+    (extract._kf_chi2 of extract._rotate_tracks; extract.track_fit_plain
+    for the p-values) on the rows each extraction hands it
+    (testing.extraction_rows), through rows_phase: chi2 sums and p-values
+    bitwise in both bug_compat modes, two launches per check (chi2_sums
+    and track_fit); the kernel's chi2 sums and the plain loop's timed at
+    the configured mode, with fit_bound."""
+    from gnn_track_finding_tpu_torch import testing
+    from gnn_track_finding_tpu_torch.ops import extract, fit_kernel
+
+    def case(call, cfg, dtype):
+        coords, valid, n_hits = call
+        cc = coords.to(dtype)
+
+        def pair(c):
+            return (lambda: (fit_kernel.chi2_sums(cc, valid, n_hits, c)
+                             + extract.track_fit(cc, valid, n_hits, c)),
+                    lambda: (extract._kf_chi2(extract._rotate_tracks(
+                        cc, valid, n_hits, c), n_hits, c)
+                        + extract.track_fit_plain(cc, valid, n_hits, c)), 2)
+        fitted = int((n_hits >= 2).sum())
+        return {"outputs": ("chi_xy", "chi_rz", "pval_xy", "pval_zr"),
+                "checks": {f" bug_compat={bug}": pair(
+                    dataclasses.replace(cfg, bug_compat=bug))
+                    for bug in (True, False)},
+                "modes": " in both bug_compat modes",
+                "timed": {"ms": (lambda: fit_kernel.chi2_sums(
+                              cc, valid, n_hits, cfg), 20),
+                          "plain_ms": (lambda: extract._kf_chi2(
+                              extract._rotate_tracks(cc, valid, n_hits, cfg),
+                              n_hits, cfg), 2)},
+                "counts": {"rows": coords.shape[0], "fitted_rows": fitted},
+                "rows": f"{fitted} of {coords.shape[0]} rows fitted",
+                "bound": fit_bound(cc, n_hits)}
+
+    return rows_phase(card, cuda, graph, "kf_fit", testing.extraction_rows,
+                      case)
+
+
+# float operations of the row-merge kernel per live slot, as written in
+# csrc/row_merge.cu: the pair distance (3 subtracts, 3 multiplies, 2 adds,
+# a sqrt) and the midpoint with its r (3 adds, 5 multiplies, an add, a
+# sqrt); an upper count, as only pair leads take them
+MERGE_SLOT = 19
+
+
+def merge_bound(state, mat) -> dict:
+    """What one merge needs, counted from the rows of the run.  Bytes: the
+    (C, H) int64 matrix; per live slot its node's xyzr and vivl; the (C,
+    H, 4) coordinates and (C, H) flags written; per row n_hits,
+    can_process and n_pairs."""
+    w = state.xyzr.element_size()
+    c, h = mat.shape
+    live = float((mat >= 0).sum())
+    n_bytes = (c * h * 8 + live * (4 * w + 16) + c * h * (4 * w + 1)
+               + c * 17)
+    return bound(n_bytes, live * MERGE_SLOT, state.xyzr.dtype)
+
+
+def merge_phase(card, cuda, graph) -> dict:
+    """The row-merge kernel (csrc/row_merge.cu) against its plain version
+    (extract.merge_rows_plain: extract._proximity_merge then
+    extract._compact_rows) on the rows each extraction hands it
+    (testing.merge_inputs), through rows_phase: every output bitwise, one
+    launch per call; the kernel, the plain ops and the kernel's H > 32
+    path (the rows padded to H 33 with an empty slot) timed, with
+    merge_bound."""
+    from gnn_track_finding_tpu_torch import testing
+    from gnn_track_finding_tpu_torch.ops import extract, merge_kernel
+
+    def case(call, cfg, dtype):
+        state, mat = call
+        st = state._replace(xyzr=state.xyzr.to(dtype))
+        wide = torch.nn.functional.pad(mat, (0, 1), value=-1)
+        kernel = lambda m: merge_kernel.merge_rows(
+            m, st.xyzr, st.vivl, cfg.node_merge_distance)
+        rows_2plus = int(((mat >= 0).sum(1) >= 2).sum())
+        pairs = int(extract.merge_rows_plain(st, cfg, mat)[4].sum())
+        return {"outputs": ("coords", "valid", "n_hits", "can_process",
+                            "n_pairs"),
+                "checks": {"": (lambda: extract.merge_rows(st, cfg, mat),
+                                lambda: extract.merge_rows_plain(st, cfg,
+                                                                 mat), 1)},
+                "modes": "",
+                "timed": {"ms": (lambda: kernel(mat), 20),
+                          "plain_ms": (lambda: extract.merge_rows_plain(
+                              st, cfg, mat), 5),
+                          "wide_h33_ms": (lambda: kernel(wide), 20)},
+                "counts": {"rows": mat.shape[0],
+                           "live_slots": int((mat >= 0).sum()),
+                           "rows_2plus": rows_2plus, "merged_pairs": pairs},
+                "rows": f"{rows_2plus} of {mat.shape[0]} rows with 2+ hits, "
+                        f"{pairs} pairs merged",
+                "bound": merge_bound(st, mat)}
+
+    return rows_phase(card, cuda, graph, "row_merge", testing.merge_inputs,
+                      case)
 
 
 def core_case(label, inputs, cfg, chi2_thr, check_found=True):
@@ -869,7 +986,7 @@ def sharded_phase(card, cuda, graph):
           and not testing.states_differ(ref_graph, res["graph"], rtol=0.0),
           "captured NCCL rank differs from the single-device run")
     check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
-                              "kf_fit": 3},
+                              "kf_fit": 3, "row_merge": 3},
           f"captured NCCL rank: launches per replay {cap['launches']}")
     check(cap["first_call_collectives"] == 2 * len(cap["census"]),
           "captured NCCL rank: the warm-up and capture issued "
@@ -922,7 +1039,8 @@ def sharded_phase(card, cuda, graph):
                        "nccl_1_rank": runs["nccl"][0]["launches"][name],
                        "nccl_1_rank_captured_per_replay":
                            cap["launches"][name]}
-                for name in ("gmr_cluster", "distinct_counts", "kf_fit")}
+                for name in ("gmr_cluster", "distinct_counts", "kf_fit",
+                             "row_merge")}
     shutil.rmtree(out_dir, ignore_errors=True)
     return owner, launches
 
@@ -1422,7 +1540,7 @@ def batch_phase(card, cuda):
     check(not any(bad.values()), f"batched results differ: {bad}")
     check(per_copy[0] == EXPECTED_F64[FULL], f"copy 0 counts {per_copy[0]}")
     check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
-                                   "kf_fit": 3},
+                                   "kf_fit": 3, "row_merge": 3},
           f"launches per batched replay {prog.kernel_launches}")
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1534,7 +1652,7 @@ def batch_phase(card, cuda):
             sb = mesh.stack_events(graphs)
             prog = pipeline.captured_program(sb, ecfg)
             check(prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
-                                           "kf_fit": 3},
+                                           "kf_fit": 3, "row_merge": 3},
                   f"{label} B={b}: launches per replay {prog.kernel_launches}")
             walls = {"batched": [], "sequential": []}
             for _ in range(3):
@@ -1660,7 +1778,7 @@ def batched_sharded_phase(card, cuda):
         check(len(program) == 64, f"gloo rank {rank}: {len(program)} "
               "collectives in the batch, not one program's 64")
         check(o["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
-                                "kf_fit": 3},
+                                "kf_fit": 3, "row_merge": 3},
               f"gloo rank {rank}: launches {o['launches']} (one program: "
               "2 and 3)")
         check(all(c["bitwise"] for c in o["kernel_checks"].values()),
@@ -1725,7 +1843,7 @@ def batched_sharded_phase(card, cuda):
           f"its single-device batched replay: {cap['single_differs']}")
     check(accepted[0] == EXPECTED_F64[FULL], f"NCCL rank: copy 0 {accepted[0]}")
     check(cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
-                              "kf_fit": 3},
+                              "kf_fit": 3, "row_merge": 3},
           f"NCCL rank: launches per replay {cap['launches']}")
     check(len(cap["census"]) == 64, f"NCCL rank: {len(cap['census'])} "
           "collectives in the stacked program")
@@ -1825,7 +1943,7 @@ def profile_phase(card, cuda):
             check(not not_bitwise, f"{label}: captured parts differ from "
                   f"their eager output: {not_bitwise}")
         check(leaves == {"gmr_cluster": 2, "distinct_counts": 3,
-                         "kf_fit": 3}
+                         "kf_fit": 3, "row_merge": 3}
               == whole.kernels, f"{label}: kernel launches over the leaf "
               f"rows {leaves}, in the whole replay {whole.kernels}")
         # the kernels' own time: the gaps between graph nodes come and go
@@ -1884,7 +2002,8 @@ def main() -> int:
     from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                                  distinct_kernel, extract,
                                                  extrapolate, fit_kernel,
-                                                 metadata, priors)
+                                                 merge_kernel, metadata,
+                                                 priors)
     cuda = torch.device("cuda")
 
     phase("2. build")
@@ -1901,6 +2020,7 @@ def main() -> int:
             dtype, clustering.KC)
         occupancy[f"distinct_counts {name}"] = distinct_kernel.occupancy(dtype)
         occupancy[f"kf_fit {name}"] = fit_kernel.occupancy(dtype)
+        occupancy[f"row_merge {name}"] = merge_kernel.occupancy(dtype)
     for label, occ in occupancy.items():
         print(f"resident on one SM, {label}: {occ}")
     shutil.rmtree(native_loader.BUILD_DIR, ignore_errors=True)
@@ -2345,6 +2465,10 @@ def main() -> int:
     fitted = fit_phase(card, cuda, graph)
     fit_calls = fitted["calls"]
 
+    phase("17. the row-merge kernel vs plain (the extractions' rows)")
+    merged = merge_phase(card, cuda, graph)
+    merge_calls = merged["calls"]
+
     def batched_sharded_entry(name):
         """A kernel's launches, agreement, times and bound in phase 14."""
         rounds = (("seed", "updated") if name == "gmr_cluster" else (None,))
@@ -2460,6 +2584,31 @@ def main() -> int:
                  "gloo_2_ranks"]["launches"]],
              "nccl_per_replay": batched_sharded["nccl_1_rank"][
                  "launches_per_replay"]["kf_fit"]}},
+        {"name": "row_merge", "route": "cuda", "source": MERGE_SOURCE,
+         "replaces": None,
+         "launches": launches["row_merge"],
+         "launches_captured": per_replay["row_merge"],
+         "launches_run_pipeline": host_launches["row_merge"],
+         "launches_calibrated": calibrated_launches["row_merge"],
+         "max_abs_err": merged["max_abs_err"],
+         "mismatches": merged["mismatches"],
+         **{k: merge_calls["full event extraction 1 float64"][k]
+            for k in ("ms", "ms_warm_l2", "plain_ms", "bound_ms",
+                      "bound_by")},
+         "library_ms": None,
+         "shape": "full event, extraction 1 (14,400 rows), float64",
+         "launches_sharded": sharded_launches["row_merge"],
+         "launches_clean_volume7": clean_launches["row_merge"],
+         "launches_studies": studies("row_merge"),
+         "calls": merge_calls,
+         "occupancy": {k: v for k, v in occupancy.items()
+                       if k.startswith("row_merge")},
+         "launches_event_batch": event_batch_launches("row_merge"),
+         "launches_batched_sharded": {
+             "gloo_2_ranks": [o["row_merge"] for o in batched_sharded[
+                 "gloo_2_ranks"]["launches"]],
+             "nccl_per_replay": batched_sharded["nccl_1_rank"][
+                 "launches_per_replay"]["row_merge"]}},
     ]
     print(f"\nchip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "kf_fit": [_P, _P],
     # int[3] out: blocks per SM, threads per block, smem bytes
     "kf_fit_occupancy": [_P],
+    # const MergeArgs* (merge_kernel._Args), stream
+    "row_merge": [_P, _P],
+    # int[3] out: blocks per SM, threads per block, smem bytes
+    "row_merge_occupancy": [_P],
 }
 # C signatures of the entry points without a dtype
 _PLAIN_SIGNATURES = {

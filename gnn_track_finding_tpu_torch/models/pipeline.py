@@ -67,7 +67,8 @@ from gnn_track_finding_tpu_torch.graph.state import (
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel, extract,
                                              extrapolate, fit_kernel,
-                                             metadata, priors, seeding)
+                                             merge_kernel, metadata, priors,
+                                             seeding)
 from gnn_track_finding_tpu_torch.utils.timing import span
 
 
@@ -457,7 +458,8 @@ def kernel_launches() -> dict:
     """The kernel wrappers' launch counters, by kernel."""
     return {"gmr_cluster": cluster_kernel.cluster_core.launches,
             "distinct_counts": distinct_kernel.distinct_counts.launches,
-            "kf_fit": fit_kernel.chi2_sums.launches}
+            "kf_fit": fit_kernel.chi2_sums.launches,
+            "row_merge": merge_kernel.merge_rows.launches}
 
 
 def reset_kernel_launches() -> None:
@@ -465,6 +467,7 @@ def reset_kernel_launches() -> None:
     cluster_kernel.cluster_core.launches = 0
     distinct_kernel.distinct_counts.launches = 0
     fit_kernel.chi2_sums.launches = 0
+    merge_kernel.merge_rows.launches = 0
 
 
 class Capture(NamedTuple):

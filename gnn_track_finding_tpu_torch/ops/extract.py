@@ -3,8 +3,11 @@
 Port of `gnn_track_finding_tpu.ops.extract` (extract.py:56-438): FastSV
 components over the active edges become rows of a (C, H) candidate matrix
 (lexsort on (component, -r), so hits arrive radius-descending); a masked
-H x H analysis does the close-proximity same-layer merge; the innermost
-edge rotation keeps the reference's r/z typo under bug_compat; the
+H x H analysis does the close-proximity same-layer merge and the rows are
+compacted (merge_rows: on the card one kernel, ops/merge_kernel.py, with
+merge_rows_plain, _proximity_merge then _compact_rows, its plain
+version); the innermost edge rotation keeps the reference's r/z typo
+under bug_compat; the
 two-plane Kalman fit runs as one H-1 step loop over all candidates; the
 chi2 survival function gives the p-values (track_fit: on the card the
 rotation and the fit are one kernel, ops/fit_kernel.py, and
@@ -28,7 +31,7 @@ import torch
 from gnn_track_finding_tpu_torch.config import PipelineConfig
 from gnn_track_finding_tpu_torch.graph import cca
 from gnn_track_finding_tpu_torch.graph.state import GraphState
-from gnn_track_finding_tpu_torch.ops import fit_kernel, linalg
+from gnn_track_finding_tpu_torch.ops import fit_kernel, linalg, merge_kernel
 from gnn_track_finding_tpu_torch.ops.priors import count_by
 
 # Rows of the accepted head per extraction (JAX pipeline.py:315-319).  The
@@ -170,6 +173,27 @@ def _compact_rows(coords, valid_m):
     coords_c.scatter_(1, dest[..., None].expand(-1, -1, 4), coords)
     valid_c = torch.arange(h, device=coords.device)[None, :] < n_hits[:, None]
     return coords_c[:, :h], valid_c, n_hits
+
+
+def merge_rows_plain(g: GraphState, cfg: PipelineConfig, mat: torch.Tensor):
+    """The proximity merge, then the row compaction: the kernel's plain
+    version -> (coords (C,H,4), valid (C,H), n_hits (C,), can_process (C,),
+    n_pairs (C,))."""
+    coords, valid_m, can_process, n_pairs = _proximity_merge(g, cfg, mat)
+    return (*_compact_rows(coords, valid_m), can_process, n_pairs)
+
+
+def merge_rows(g: GraphState, cfg: PipelineConfig, mat: torch.Tensor):
+    """The proximity merge and the row compaction of every candidate row,
+    as merge_rows_plain gives them: the row_merge kernel on the card, the
+    plain version for CPU tensors."""
+    dev = mat.device
+    if dev.type == "cpu":
+        return merge_rows_plain(g, cfg, mat)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_rows: unsupported device {dev}")
+    return merge_kernel.merge_rows(mat, g.xyzr, g.vivl,
+                                   cfg.node_merge_distance)
 
 
 def _rotate_tracks(coords, valid, n_hits, cfg: PipelineConfig):
@@ -372,8 +396,7 @@ def extract_candidates(g: GraphState, cfg: PipelineConfig,
                                                cfg.min_track_hits)
     big_enough = size >= cfg.min_track_hits
 
-    coords, valid_m, can_process, n_pairs = _proximity_merge(g, cfg, mat)
-    coords_c, valid_c, n_hits = _compact_rows(coords, valid_m)
+    coords_c, valid_c, n_hits, can_process, n_pairs = merge_rows(g, cfg, mat)
     # one hit per layer post-merge AND enough distinct layers (ref :427-429)
     processed = big_enough & can_process & (n_hits >= cfg.min_track_hits)
 

@@ -11,10 +11,11 @@ version.  `extract.track_fit`, the one entry of extraction, takes the
 kernel for CUDA tensors and the plain version for CPU tensors, and turns
 the sums into p-values with torch ops after it.
 
-Inputs, as extract._compact_rows gives them: coords (C, H, 4) raw
+Inputs, as extract.merge_rows gives them: coords (C, H, 4) raw
 (x, y, z, r) per slot, each row's slots contiguous (its row stride may be
-any: the compaction's rows are H + 1 slots long); valid (C, H) bool, the
-row's first n_hits slots; n_hits (C,) int64, at most H.
+any: the row_merge kernel's rows are H slots long, the plain
+compaction's H + 1); valid (C, H) bool, the row's first n_hits slots;
+n_hits (C,) int64, at most H.
 """
 
 from __future__ import annotations

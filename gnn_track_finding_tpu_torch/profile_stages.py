@@ -21,7 +21,8 @@ iteration 1's), and for every stage and part, in schedule order:
                replay out of the time;
   launches     the device events (kernels, copies, memsets) of one replay
                under torch.profiler (utils/timing.busy_share), and among
-               them the gmr_cluster, distinct_counts and kf_fit kernels;
+               them the gmr_cluster, distinct_counts, kf_fit and row_merge
+               kernels;
   kernel ms    the summed durations of those events: the replay's device
                time without the gaps between graph nodes, which in some
                replays add ~0.34 us a node and in others vanish (PERF.md);
@@ -36,8 +37,8 @@ iteration 1's), and for every stage and part, in schedule order:
                measured once per run (`launch_node_ms`: a graph of 1,000
                one-element add_'s);
   rest         a stage's device ms less the sum of its parts: what no part
-               accounts for (e.g. the row compaction between the proximity
-               merge and the fit, extract._compact_rows);
+               accounts for (e.g. extraction's `processed` and `accepted`
+               masks between its parts);
   bitwise      the captured part's output against its eager output.
 
 The whole schedule, `full_pipeline_packed` (what pipeline.CapturedSchedule
@@ -95,7 +96,7 @@ L2_FLUSH_BYTES = 128 * 2**20
 # about 1 ms of a spin kernel, enqueued ahead of each timed replay
 SPIN_CYCLES = 2_000_000
 LAUNCH_NODES = 1000
-KERNELS = ("gmr_cluster", "distinct_counts", "kf_fit")
+KERNELS = ("gmr_cluster", "distinct_counts", "kf_fit", "row_merge")
 CACHE = Path(__file__).resolve().parents[1] / ".event_cache"
 EVENTS = {"full": CACHE / "event_7bba1cb4ae95bca1.npz",
           "volume7": CACHE / "event_fafb3309e4598e9b.npz"}
@@ -396,9 +397,8 @@ def _extraction_parts(p: Profiler, cfg: PipelineConfig, i: int, stage: str,
         mat, size, row_of_node = run("_candidate_matrix",
                                      extract._candidate_matrix, g, labels, h,
                                      min_hits)
-        coords, valid_m, can_process, n_pairs = run(
-            "_proximity_merge", extract._proximity_merge, g, cfg, mat)
-        coords_c, valid_c, n_hits = extract._compact_rows(coords, valid_m)
+        coords_c, valid_c, n_hits, can_process, n_pairs = run(
+            "merge_rows (row_merge)", extract.merge_rows, g, cfg, mat)
         processed = (size >= min_hits) & can_process & (n_hits >= min_hits)
         pval_xy, pval_zr = run("track_fit (kf_fit)", extract.track_fit,
                                coords_c, valid_c, n_hits, cfg)
@@ -505,7 +505,7 @@ def table(prof: Profile, label: str) -> List[str]:
              f"({', '.join(KERNELS)}), compulsory MB, byte floor "
              f"ms, its share of the {head}, launch floor ms, rest ms",
              f"{'it':>2} {'level':6} {'name':44} {'ms':>9} {'warm':>9} "
-             f"{'kernel':>9} {'launch':>6} {'k':>5} {'MB':>9} {'floor':>7} "
+             f"{'kernel':>9} {'launch':>6} {'k':>7} {'MB':>9} {'floor':>7} "
              f"{'share':>7} {'lfloor':>8} {'rest':>8}"]
     for r in prof.rows:
         name = {"part": "  ", "round": "  ("}.get(r.level, "") + r.name
@@ -514,7 +514,7 @@ def table(prof: Profile, label: str) -> List[str]:
         lines.append(
             f"{r.iteration:>2} {r.level:6} {name[:44]:44} {_f(r.ms):>9} "
             f"{_f(r.warm_ms):>9} {_f(r.kernel_ms):>9} "
-            f"{_f(r.launches, 'd'):>6} {k:>5} {r.bytes / 1e6:>9.3f} "
+            f"{_f(r.launches, 'd'):>6} {k:>7} {r.bytes / 1e6:>9.3f} "
             f"{r.floor_ms:>7.4f} {_f(r.share, '.2%'):>7} "
             f"{_f(r.launch_floor_ms):>8} {_f(r.rest_ms):>8}")
     whole = prof.whole()

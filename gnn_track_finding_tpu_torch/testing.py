@@ -223,23 +223,145 @@ def fit_rows(seed: int, rows: int, h: int = 32, *, dtype=torch.float64,
             torch.from_numpy(n_hits).to(device))
 
 
+def entry_calls(g, cfg, name: str, clone) -> list:
+    """clone(*args) of each call that an eager run of the schedule on g
+    makes to extraction's entry extract.<name>."""
+    from gnn_track_finding_tpu_torch.ops import extract
+    entry, seen = getattr(extract, name), []
+
+    def recorded(*args):
+        seen.append(clone(*args))
+        return entry(*args)
+
+    setattr(extract, name, recorded)
+    try:
+        pipeline.full_pipeline_results(g, cfg)
+    finally:
+        setattr(extract, name, entry)
+    return seen
+
+
 def extraction_rows(g, cfg) -> list:
     """The compacted rows (coords, valid, n_hits) that each extraction of
     an eager run of the schedule on g hands extract.track_fit, cloned: the
     inputs of the track-fit kernel at the main path's shapes."""
-    from gnn_track_finding_tpu_torch.ops import extract
-    entry, seen = extract.track_fit, []
+    return entry_calls(g, cfg, "track_fit", lambda coords, valid, n_hits, _:
+                       (coords.clone(), valid.clone(), n_hits.clone()))
 
-    def recorded(coords, valid, n_hits, cfg):
-        seen.append((coords.clone(), valid.clone(), n_hits.clone()))
-        return entry(coords, valid, n_hits, cfg)
 
-    extract.track_fit = recorded
-    try:
-        pipeline.full_pipeline_results(g, cfg)
-    finally:
-        extract.track_fit = entry
-    return seen
+# row kinds of merge_cases, cycled over the rows
+MERGE_KINDS = ("empty", "full", "short", "near_pair", "far_pair",
+               "edge_pair", "first_pair", "last_pair", "apart_pair",
+               "two_pairs", "full_pairs", "three_pairs", "triple",
+               "near_and_far", "gap")
+
+
+class MergeState(NamedTuple):
+    """What extract.merge_rows reads of a GraphState."""
+    xyzr: torch.Tensor      # (N, 4)
+    vivl: torch.Tensor      # (N, 2) int64
+
+
+def _merge_row(kind: str, h: int, rng) -> tuple:
+    """The layer of each slot of one row (a layer listed twice or thrice:
+    more hits on it; None: an empty slot) and, per repeated layer, where
+    its later hits lie from its first: 'near' within the merge distance,
+    'far' beyond it, 'edge' at exactly it."""
+    n = int(rng.integers(6, h + 1))
+    pick = lambda k, m: sorted(rng.choice(m, size=k, replace=False).tolist(),
+                               reverse=True)
+    if kind == "empty":
+        return [], {}
+    if kind == "short":
+        return list(range(int(rng.integers(1, 4)))), {}
+    if kind == "full":
+        return list(range(h)), {}
+    if kind == "last_pair":                  # the partner at slot h - 1
+        return list(range(h - 1)) + [h - 2], {h - 2: "near"}
+    if kind == "first_pair":                 # the lead at slot 0
+        return [0] + list(range(n - 1)), {0: "near"}
+    if kind == "apart_pair":                 # the partner 3 slots on
+        slots = list(range(n - 1))
+        k = int(rng.integers(0, n - 4))
+        slots.insert(k + 3, k)
+        return slots, {k: "near"}
+    twins = {"near_pair": 1, "far_pair": 1, "edge_pair": 1, "gap": 1,
+             "two_pairs": 2, "full_pairs": 2, "near_and_far": 2,
+             "three_pairs": 3, "triple": 2}[kind]
+    n = h if kind == "full_pairs" else n
+    layers = pick(1, n - 2) * 2 if kind == "triple" else pick(twins,
+                                                              n - twins)
+    slots = list(range(n - twins))
+    for k in layers:                         # each after its layer's first
+        slots.insert(k + 1, k)
+    offset = {"far_pair": "far", "edge_pair": "edge"}.get(kind, "near")
+    where = {k: offset for k in layers}
+    if kind == "near_and_far":
+        where[layers[0]] = "far"
+    if kind == "gap":
+        slots.insert(int(rng.integers(1, len(slots))), None)
+    return slots[:h], where
+
+
+def merge_cases(seed: int, rows: int, h: int = 32, *, dtype=torch.float64,
+                device="cpu", distance: float = 8.0):
+    """(MergeState, mat (rows, h) int64): candidate rows in the layout of
+    extract._candidate_matrix for extract.merge_rows, every MERGE_KINDS
+    kind in turn.  A row is one track's hits, radius-descending, one
+    layer (volume, layer) a hit, but: no hit (empty), 1-3 hits, all h
+    slots on distinct layers (full), a layer with a second hit within
+    `distance` of its first (near_pair), beyond it (far_pair), at exactly
+    it (edge_pair: integer coordinates 8 apart in x), that pair at slots
+    0 and 1 (first_pair), at slots h - 2 and h - 1 of a full row
+    (last_pair), 3 slots apart (apart_pair), two layers with pairs
+    (two_pairs; full_pairs in a full row), three (three_pairs), a layer
+    with three hits (triple), one pair near and one far (near_and_far),
+    and a near pair beside an empty slot inside the row (gap).  Node
+    indices are shuffled, with unused nodes among them."""
+    assert h >= 8
+    rng = np.random.default_rng(seed)
+    xyzr, vivl = [], []
+    mat = np.full((rows, h), -1, dtype=np.int64)
+    for row in range(rows):
+        slots, where = _merge_row(MERGE_KINDS[row % len(MERGE_KINDS)], h, rng)
+        n_layers = max([s for s in slots if s is not None], default=-1) + 1
+        rr = np.sort(rng.uniform(30.0, 1000.0, size=n_layers))[::-1]
+        phi = rng.uniform(-np.pi, np.pi) + rr / rng.uniform(1500.0, 6000.0)
+        z = rng.normal() * 50.0 + rr * rng.uniform(-1.5, 1.5)
+        first = np.round(np.stack([rr * np.cos(phi), rr * np.sin(phi), z], 1))
+        seen = set()
+        for slot, layer in enumerate(slots):
+            if layer is None:
+                continue
+            p = first[layer].copy()
+            if layer in seen:
+                u = rng.normal(size=3)
+                u /= np.linalg.norm(u)
+                p += {"near": u * rng.uniform(0.5, 0.9) * distance,
+                      "far": u * rng.uniform(1.5, 5.0) * distance,
+                      "edge": np.array([distance, 0.0, 0.0])}[where[layer]]
+            seen.add(layer)
+            mat[row, slot] = len(xyzr)
+            xyzr.append([*p, math.hypot(p[0], p[1])])
+            vivl.append([7 + layer // 16, 2 + 2 * (layer % 16)])
+    n = len(xyzr) + 5                        # unused nodes, zero-filled
+    perm = rng.permutation(n)
+    xyzr_np = np.zeros((n, 4))
+    vivl_np = np.zeros((n, 2), dtype=np.int64)
+    xyzr_np[perm[:len(xyzr)]] = np.asarray(xyzr).reshape(-1, 4)
+    vivl_np[perm[:len(vivl)]] = np.asarray(vivl, dtype=np.int64).reshape(-1, 2)
+    mat = np.where(mat >= 0, perm[np.clip(mat, 0, None)], -1)
+    return (MergeState(torch.from_numpy(xyzr_np).to(device, dtype),
+                       torch.from_numpy(vivl_np).to(device)),
+            torch.from_numpy(mat).to(device))
+
+
+def merge_inputs(g, cfg) -> list:
+    """The (MergeState, mat) that each extraction of an eager run of the
+    schedule on g hands extract.merge_rows, cloned: the inputs of the
+    row_merge kernel at the main path's shapes."""
+    return entry_calls(g, cfg, "merge_rows", lambda g, _, mat: (
+        MergeState(g.xyzr.clone(), g.vivl.clone()), mat.clone()))
 
 
 class HostReads(TorchDispatchMode):

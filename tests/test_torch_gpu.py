@@ -19,8 +19,9 @@ so they run on a machine that has only torch:
 
 Tolerances: at float64 the kernels repeat their plain versions' order of
 operations with no contraction (nvcc -fmad=false; the track fit's
-kernel through the _rn intrinsics), so flags, masks, counts and values
-are bitwise equal; the track fit's kernel at float32 too; the clustering
+kernel through the _rn intrinsics), so flags, masks,
+counts and values are bitwise equal; the track fit's and the row merge's
+kernels at float32 too; the clustering
 kernel at float32 within the band of tests/test_pallas_cluster.py (under
 6% flag flips, rtol 1e-5 where both merge)."""
 
@@ -39,7 +40,7 @@ from gnn_track_finding_tpu_torch.graph.build import build_event, build_graph_sta
 from gnn_track_finding_tpu_torch.models import pipeline, toymc
 from gnn_track_finding_tpu_torch.ops import (cluster_kernel, clustering,
                                              distinct_kernel, extract,
-                                             fit_kernel)
+                                             fit_kernel, merge_kernel)
 from gnn_track_finding_tpu_torch.utils import timing
 
 VOL7_NPZ = (Path(__file__).resolve().parents[1] / ".event_cache"
@@ -141,6 +142,7 @@ def test_kernel_occupancy(cuda, dtype):
         assert occ["blocks_per_sm"] >= 1, occ
     assert distinct_kernel.occupancy(dtype)["blocks_per_sm"] >= 1
     assert fit_kernel.occupancy(dtype)["blocks_per_sm"] >= 1
+    assert merge_kernel.occupancy(dtype)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.gpu
@@ -289,7 +291,7 @@ def test_fit_kernel_takes_the_place_of_the_fit_nodes(cuda):
                           mirror=pre["mirror"], component=pre["component"])
     prog = pipeline.captured_program(g, cfg)
     assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
-                                    "kf_fit": 3}
+                                    "kf_fit": 3, "row_merge": 3}
     assert prog.capture.graph_nodes <= 3000, prog.capture.graph_nodes
     pipeline.clear_programs()
     stack = mesh.stack_events([
@@ -297,7 +299,115 @@ def test_fit_kernel_takes_the_place_of_the_fit_nodes(cuda):
                            copy=b, copies=32) for b in range(32)])
     prog = pipeline.captured_program(stack, CFG)
     assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
-                                    "kf_fit": 3}
+                                    "kf_fit": 3, "row_merge": 3}
+    pipeline.clear_programs()
+
+
+def _merge_differs(state, mat, cfg):
+    """The row_merge kernel against its plain version (_proximity_merge
+    then _compact_rows) on the card, on the same rows: every output bit
+    for bit.  -> the outputs that differ."""
+    before = merge_kernel.merge_rows.launches
+    got = extract.merge_rows(state, cfg, mat)
+    assert merge_kernel.merge_rows.launches == before + 1
+    assert got[0].is_contiguous()
+    want = extract.merge_rows_plain(state, cfg, mat)
+    torch.cuda.synchronize()
+    names = ("coords", "valid", "n_hits", "can_process", "n_pairs")
+    differ = []
+    for name, a, b in zip(names, got, want):
+        if a.dtype in BITS:
+            a, b = a.view(BITS[a.dtype]), b.view(BITS[b.dtype])
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            differ.append(name)
+    return differ
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [0, 1, 37, 1000])
+@pytest.mark.parametrize("h", [8, 32, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_merge_kernel_matches_plain_on_synthetic_rows(cuda, dtype, h, rows):
+    """testing.merge_cases: empty rows, full rows, pairs within, beyond
+    and at exactly node_merge_distance, one, two and three layers with
+    pairs, a layer with three hits, a pair at slots 0 and 1 and at
+    H - 2 and H - 1, a pair 3 slots apart, an empty slot inside a row;
+    H below, at and above 32 (the shared-memory path), row counts that
+    are no multiple of a block."""
+    state, mat = testing.merge_cases(rows + h, rows, h, dtype=dtype,
+                                     device=cuda)
+    assert not _merge_differs(state, mat, CFG)
+
+
+@pytest.fixture(scope="module")
+def merge_inputs():
+    """What each of the three extractions hands extract.merge_rows at
+    float64 (testing.merge_inputs: recorded in an eager run of the
+    schedule), for the full event and volume 7 in 32 rotated copies
+    stacked."""
+    from gnn_track_finding_tpu_torch.parallel import mesh
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cuda = torch.device("cuda")
+    full_cfg = PipelineConfig(min_volume=7, max_volume=14)
+    xyzr, vivl, tp, pairs, _, pre = load_npz(FULL_NPZ)
+    full = build_graph_state(xyzr, vivl, tp, pairs, full_cfg, device=cuda,
+                             mirror=pre["mirror"], component=pre["component"])
+    stack = mesh.stack_events([
+        testing.load_event(VOL7_NPZ, CFG, device=cuda, dtype=torch.float64,
+                           copy=b, copies=32) for b in range(32)])
+    return {"full": (testing.merge_inputs(full, full_cfg), full_cfg),
+            "vol7x32": (testing.merge_inputs(stack, CFG), CFG)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("event", ["full", "vol7x32"])
+def test_merge_kernel_matches_plain_on_extraction_rows(merge_inputs, event,
+                                                       dtype):
+    """The candidate rows of the event's three extractions (float32: the
+    same coordinates rounded): the kernel bitwise its plain version on
+    the card, every output; the rows hold merged pairs and rows that
+    cannot be processed."""
+    calls, cfg = merge_inputs[event]
+    assert len(calls) == 3
+    for it, (state, mat) in enumerate(calls):
+        state = state._replace(xyzr=state.xyzr.to(dtype))
+        assert not _merge_differs(state, mat, cfg), it
+    pairs = [int(extract.merge_rows(s, cfg, m)[4].sum()) for s, m in calls]
+    assert pairs[0] > 0, pairs
+
+
+@pytest.mark.gpu
+def test_merge_kernel_refuses_what_it_cannot_take(cuda):
+    state, mat = testing.merge_cases(0, 4, 8, device=cuda)
+    x, v = state.xyzr, state.vivl
+    wide = torch.full((4, merge_kernel.MAX_H + 1), -1, dtype=torch.int64,
+                      device=cuda)
+    bad = {"mat dtype": (mat.int(), x, v), "mat strides": (mat.t(), x, v),
+           "mat width": (wide, x, v), "xyzr dtype": (mat, x.half(), v),
+           "xyzr width": (mat, x[:, :3], v), "vivl dtype": (mat, x, v.int()),
+           "vivl rows": (mat, x, v[:-1]), "device": (mat, x, v.cpu()),
+           "host mat": (mat.cpu(), x, v)}
+    for name, args in bad.items():
+        with pytest.raises(ValueError, match="row_merge"):
+            merge_kernel.merge_rows(*args, CFG.node_merge_distance)
+
+
+@pytest.mark.gpu
+def test_merge_kernel_launches_three_times_an_event(cuda):
+    """Volume 7: one launch per extraction eagerly and per replay of the
+    captured program, and the captured counts are the reference's."""
+    g = _volume7(cuda, torch.float64)
+    pipeline.reset_kernel_launches()
+    pipeline.run_pipeline_eager(g, CFG)
+    assert merge_kernel.merge_rows.launches == 3
+    pipeline.clear_programs()
+    prog = pipeline.captured_program(g, CFG)
+    assert prog.kernel_launches["row_merge"] == 3
+    out = pipeline.run_pipeline_fast(g, CFG)
+    assert [sum(1 for c in out.candidates if c.iteration == i)
+            for i in (1, 2, 3)] == [1055, 110, 2]
     pipeline.clear_programs()
 
 
@@ -559,7 +669,7 @@ def test_nccl_rank_replays_a_stacked_sharded_batch(sharded_volume7):
     rank of one: one captured program, its first call, a replay and a
     replay under sync debug mode "error" bitwise the eager body's run,
     each event bitwise its single-device batched replay and at the
-    single-device counts, 2 / 3 / 3 kernel launches per replay, no
+    single-device counts, 2 / 3 / 3 / 3 kernel launches per replay, no
     fallback."""
     runs, ref = sharded_volume7
     cap = runs["nccl_stacked"]
@@ -567,7 +677,7 @@ def test_nccl_rank_replays_a_stacked_sharded_batch(sharded_volume7):
     assert cap["differs"] == {"first": [], "replay": [], "sync_debug": []}
     assert cap["single_differs"] == [[], []]
     assert cap["launches"] == {"gmr_cluster": 2, "distinct_counts": 3,
-                               "kf_fit": 3}
+                               "kf_fit": 3, "row_merge": 3}
     for out in cap["result"]:
         assert out["acc_count"] == ref.acc_count.tolist() == [1055, 110, 2]
     assert cap["fallbacks"] == 0
@@ -683,7 +793,7 @@ def test_batched_replay_equals_eager_and_single_replays(cuda, event):
     first = pipeline.run_pipeline_batched(graphs, cfg)
     prog = pipeline.captured_program(mesh.stack_events(graphs), cfg)
     assert prog.kernel_launches == {"gmr_cluster": 2, "distinct_counts": 3,
-                                    "kf_fit": 3}
+                                    "kf_fit": 3, "row_merge": 3}
     replayed = pipeline.run_pipeline_batched(graphs, cfg)
     eager = pipeline.run_pipeline_batched(graphs, cfg, eager=True)
     for b, single in enumerate(singles):
@@ -758,7 +868,7 @@ def test_kernel_gate_on_the_card(cuda):
 def test_profile_stages_on_the_card(cuda):
     """profile_stages.profile on volume 7 at float64: every row captured
     bitwise its eager output, with device times and launches; 2
-    gmr_cluster, 3 distinct_counts and 3 kf_fit launches over the leaf
+    gmr_cluster, 3 distinct_counts, 3 kf_fit and 3 row_merge launches over the leaf
     rows, as in the whole replay; the stage rows' kernel time within 25%
     of the replay's; the reference's counts; FastSV within R_CAP
     rounds."""
@@ -769,9 +879,8 @@ def test_profile_stages_on_the_card(cuda):
     assert all(r.device_ms > 0 and r.warm_ms > 0 and r.launches > 0
                for r in prof.rows)
     whole = prof.whole()
-    assert prof.leaf_kernels() == whole.kernels == {"gmr_cluster": 2,
-                                                    "distinct_counts": 3,
-                                                    "kf_fit": 3}
+    assert prof.leaf_kernels() == whole.kernels == {
+        "gmr_cluster": 2, "distinct_counts": 3, "kf_fit": 3, "row_merge": 3}
     assert 0.75 <= prof.stage_sum_ms("kernel_ms") / whole.kernel_ms <= 1.25
     assert prof.accepted == [1055, 110, 2]
     assert all(r <= cca.R_CAP for r in prof.rounds)
